@@ -1,0 +1,155 @@
+"""Small shared utilities: UId generation, zero-padded filenames, atomic
+file writes, retries, parallel helpers.
+
+Capability parity with the reference's ``src/ra_lib.erl`` (make_uid,
+zpad_hex, write_file + sync, retry, partition_parallel) and
+``src/ra_file.erl`` (retrying file ops), re-done with Python/os primitives.
+"""
+
+from __future__ import annotations
+
+import os
+import secrets
+import string
+import tempfile
+import threading
+import time
+from typing import Any, Callable, Iterable, List, Sequence, Tuple, TypeVar
+
+T = TypeVar("T")
+R = TypeVar("R")
+
+_UID_ALPHABET = string.ascii_uppercase + string.digits
+
+
+def make_uid(prefix: str = "", n: int = 12) -> str:
+    """Unique, filesystem-safe id (uppercase alphanumeric)."""
+    body = "".join(secrets.choice(_UID_ALPHABET) for _ in range(n))
+    return (prefix + body) if prefix else body
+
+
+def validate_name(name: str) -> bool:
+    """Names must be safe for use in file paths and registries."""
+    ok = set(string.ascii_letters + string.digits + "_-.")
+    return bool(name) and all(c in ok for c in name) and name not in (".", "..")
+
+
+def zpad_hex(n: int, width: int = 16) -> str:
+    return format(n, f"0{width}X")
+
+
+def zpad_filename(prefix: str, ext: str, n: int, width: int = 16) -> str:
+    base = f"{n:0{width}d}.{ext}"
+    return f"{prefix}_{base}" if prefix else base
+
+
+def atomic_write(path: str, data: bytes, fsync: bool = True) -> None:
+    """Write ``data`` to ``path`` atomically (tmp file + rename), with
+    optional fsync of the file and its directory."""
+    d = os.path.dirname(os.path.abspath(path))
+    fd, tmp = tempfile.mkstemp(prefix=f".{os.path.basename(path)}.", suffix=".tmp", dir=d)
+    try:
+        with os.fdopen(fd, "wb") as f:
+            f.write(data)
+            if fsync:
+                f.flush()
+                os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    if fsync:
+        sync_dir(d)
+
+
+def sync_dir(path: str) -> None:
+    fd = os.open(path, os.O_RDONLY | getattr(os, "O_DIRECTORY", 0))
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def retry(
+    fn: Callable[[], T],
+    attempts: int = 3,
+    delay_s: float = 0.05,
+    max_delay_s: float = 1.0,
+    backoff: float = 2.0,
+) -> T:
+    """Bounded-exponential-backoff retry for transient file ops — the
+    uniform wrapper the storage stack puts around opens/renames/copies
+    (reference: ``src/ra_file.erl:1-37`` retries every op). Worst-case
+    total sleep with the defaults is 0.05 + 0.1 = 0.15s; callers on a
+    commit path keep attempts small."""
+    last: Exception | None = None
+    d = delay_s
+    for i in range(attempts):
+        try:
+            return fn()
+        except Exception as e:  # noqa: BLE001 - retry any failure
+            last = e
+            if i + 1 < attempts:
+                time.sleep(d)
+                d = min(d * backoff, max_delay_s)
+    assert last is not None
+    raise last
+
+
+def partition_parallel(
+    fn: Callable[[T], R], items: Sequence[T], max_workers: int = 16, timeout_s: float = 30.0
+) -> Tuple[List[Tuple[T, R]], List[Tuple[T, BaseException]]]:
+    """Run fn over items in parallel; return (oks, errors) partitions.
+
+    Mirrors the reference's parallel cluster start helper
+    (reference: src/ra_lib.erl partition_parallel, src/ra.erl:397-404).
+    """
+    oks: List[Tuple[T, R]] = []
+    errs: List[Tuple[T, BaseException]] = []
+    if not items:
+        return oks, errs
+    # Daemon threads, not ThreadPoolExecutor: hung tasks must neither block
+    # this call past the deadline nor pin interpreter exit (non-daemon pool
+    # workers are joined at shutdown).
+    results: dict[int, Tuple[str, Any]] = {}
+    lock = threading.Lock()
+    done_cv = threading.Condition(lock)
+    sem = threading.Semaphore(min(max_workers, len(items)))
+
+    def run(i: int, item: T) -> None:
+        with sem:
+            try:
+                r: Tuple[str, Any] = ("ok", fn(item))
+            except BaseException as e:  # noqa: BLE001
+                r = ("err", e)
+        with done_cv:
+            results[i] = r
+            done_cv.notify_all()
+
+    for i, item in enumerate(items):
+        threading.Thread(target=run, args=(i, item), daemon=True).start()
+    deadline = time.monotonic() + timeout_s
+    with done_cv:
+        while len(results) < len(items):
+            remaining = deadline - time.monotonic()
+            if remaining <= 0 or not done_cv.wait(timeout=remaining):
+                break
+        snapshot = dict(results)
+    for i, item in enumerate(items):
+        res = snapshot.get(i)
+        if res is None:
+            errs.append((item, TimeoutError(f"timed out after {timeout_s}s")))
+        elif res[0] == "ok":
+            oks.append((item, res[1]))
+        else:
+            errs.append((item, res[1]))
+    return oks, errs
+
+
+def derive_dir(base: str, *parts: str) -> str:
+    p = os.path.join(base, *parts)
+    os.makedirs(p, exist_ok=True)
+    return p

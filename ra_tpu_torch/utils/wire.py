@@ -1,0 +1,78 @@
+"""Restricted deserialization for UNTRUSTED bytes (network frames,
+snapshot chunk bodies received over transfer).
+
+HMAC authentication keeps strays off the wire, but plain pickle would
+hand any cookie HOLDER arbitrary code execution. ``wire_loads`` resolves
+global references through an allowlist instead:
+
+- an exact ``(module, qualname)`` registered via ``register_wire_type``
+  (application machine-command/state payload classes);
+- a small set of plain container types from ``builtins``/``collections``;
+- CLASSES (never module-level functions) defined under ``ra_tpu_torch.`` —
+  the protocol/effect vocabulary and model machine state types.
+
+Dotted names are rejected outright: pickle protocol 4's STACK_GLOBAL
+resolves them by attribute traversal, so ``ra_tpu_torch.protocol`` +
+``dataclasses.sys...`` would otherwise tunnel to arbitrary modules.
+Class-only resolution keeps REDUCE from invoking module functions
+(e.g. decoders that would re-enter unrestricted pickle); constructing
+an allowlisted class is within the trust model — an authenticated peer
+can already drive the management plane.
+"""
+
+from __future__ import annotations
+
+import io
+import pickle
+
+_WIRE_SAFE_BY_MODULE = {
+    "builtins": frozenset({"set", "frozenset", "bytearray", "complex"}),
+    "collections": frozenset({"deque", "OrderedDict", "Counter"}),
+}
+_extra_wire_types: set = set()
+
+
+def register_wire_type(cls) -> None:
+    """Allow ``cls`` (e.g. a custom machine-command or machine-state
+    payload class) to cross the wire. Call on every node that receives
+    it."""
+    _extra_wire_types.add((cls.__module__, cls.__qualname__))
+
+
+def unregister_wire_type(cls) -> None:
+    """Remove a previously registered wire type (tests / teardown)."""
+    _extra_wire_types.discard((cls.__module__, cls.__qualname__))
+
+
+class _RestrictedUnpickler(pickle.Unpickler):
+    def find_class(self, module, name):
+        if (module, name) in _extra_wire_types:
+            return super().find_class(module, name)
+        if "." in name or name.startswith("_"):
+            raise pickle.UnpicklingError(
+                f"wire type {module}.{name} not allowlisted (dotted or "
+                "private name)"
+            )
+        if name in _WIRE_SAFE_BY_MODULE.get(module, ()):
+            return super().find_class(module, name)
+        if module == "ra_tpu_torch" or module.startswith("ra_tpu_torch."):
+            obj = super().find_class(module, name)
+            if isinstance(obj, type):
+                return obj
+        raise pickle.UnpicklingError(
+            f"wire type {module}.{name} not allowlisted "
+            "(see ra_tpu_torch.utils.wire.register_wire_type)"
+        )
+
+
+def wire_loads(payload: bytes):
+    """Deserialize untrusted bytes through the allowlist."""
+    return _RestrictedUnpickler(io.BytesIO(payload)).load()
+
+
+def wire_load_file(f):
+    """Deserialize untrusted bytes from a binary file object through the
+    allowlist — STREAMING: the unpickler reads incrementally, so a large
+    snapshot body decodes without ever materializing the file as one
+    bytes object (used by the chunked snapshot accept path)."""
+    return _RestrictedUnpickler(f).load()
