@@ -5,13 +5,27 @@ Run from the root of the repository, on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``ra_tpu_torch/csrc/``,
-holds each against its plain PyTorch version on the card, holds the
-fused consensus step on the card against the same step on the CPU, then
-runs the main path — the durable replicated write of the batch backend:
+It builds the hand-written CUDA kernels from ``ra_tpu_torch/csrc/`` (one
+``nvcc`` per source, all at once), holds each against its plain PyTorch
+version on the card: the quorum scan (``quorum.cu``) and the fused step
+kernels (``step.cu``, full width and active set) over edge inputs at
+P = 1..16 and 33 (the register instances and the runtime-width one),
+against the plain torch-op step on the card and on the CPU. Then it
+runs the main path, the durable replicated write of the batch backend:
 three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
-WAL-backed logs, cooperative pipelined stepping — and checks that every
-command was committed and applied on all three replicas.
+WAL-backed logs, cooperative pipelined stepping, through the step
+kernels, and checks that every command was committed and applied on all
+three replicas. The same main path runs once more with the plain
+torch-op step, for comparison within the run.
+
+Options (the defaults are the smoke run):
+
+    --rounds N             run the main-path comparison N times, the
+                           order alternating (kernels then plain, plain
+                           then kernels, ...), and report every run
+    --switch-interval S    set the interpreter's thread switch interval
+                           (sys.setswitchinterval) to S seconds for the
+                           main-path runs
 
 Phases print one line each (and their elapsed time). The line before
 the last is a JSON object ``{"kernels": [...]}`` with each kernel's
@@ -23,6 +37,7 @@ It imports nothing of JAX and nothing of the ``ra_tpu`` package.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -42,6 +57,13 @@ PEERS = 3
 SUFFIX_K = 32
 WAVES = 4  # full-fleet command waves on the main path
 TIMED_CALLS = 200  # per timed function (median reported)
+# the active-set step's shape: the coordinator's power-of-two pad over
+# 1500 hot groups
+SUB_REAL = 1500
+SUB_CAP = 2048
+# peer widths of phase step: the step kernel's register instances (1..8)
+# and its runtime-width instance (9..16, 33)
+STEP_WIDTHS = tuple(range(1, 17)) + (33,)
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
@@ -154,154 +176,159 @@ def phase_kernel(torch, quorum, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the fused step on the card against the step on the CPU
+# phase 3: the step kernels against the plain step, on the card and the CPU
 
 
-def random_state_fields(rng, g: int, p: int, k: int) -> dict:
-    """A seeded, internally consistent state: tails inside the term ring,
-    ascending terms, some leaders with followers' replies in flight."""
-    snap = rng.integers(0, 20, g)
-    tail = rng.integers(0, k - 1, g)
-    last = snap + tail
-    snap_term = rng.integers(1, 3, g)
-    suffix = np.zeros((g, k), np.int32)
-    term = snap_term.copy()
-    for off in range(k - 1):
-        idx = snap + 1 + off
-        live = idx <= last
-        term = term + ((rng.random(g) < 0.3) & live)
-        suffix[np.arange(g)[live], (idx % k)[live]] = term[live]
-    last_term = np.where(tail > 0, term, snap_term)
-    cur = last_term + rng.integers(0, 2, g)
-    commit = np.minimum(snap + rng.integers(0, 4, g), last)
-    written = np.clip(last - rng.integers(0, 3, g), snap, None)
-    role = rng.choice([0, 1, 2, 3], size=g, p=[0.4, 0.1, 0.1, 0.4])
-    self_slot = rng.integers(0, p, g)
-    voting = rng.random((g, p)) < 0.9
-    voting[np.arange(g), self_slot] = True
-    match = np.minimum(rng.integers(0, 40, (g, p)), last[:, None])
-    return {
-        "current_term": cur, "voted_for": rng.integers(-1, p, g),
-        "commit_index": commit, "last_applied": commit,
-        "last_index": last, "last_term": last_term,
-        "written_index": written, "snapshot_index": snap,
-        "snapshot_term": snap_term, "role": role,
-        "leader_slot": np.where(role == 3, self_slot, -1),
-        "self_slot": self_slot, "machine_version": rng.integers(0, 2, g),
-        "match_index": match, "next_index": match + 1,
-        "voting": voting, "active": np.ones((g, p), bool),
-        "votes": rng.random((g, p)) < 0.3,
-        "pre_votes": rng.random((g, p)) < 0.3,
-        "term_suffix": suffix, "unknown_lo": np.ones(g),
-        "unknown_hi": np.zeros(g), "pre_vote_token": rng.integers(0, 3, g),
-    }
+def step_cases():
+    """The edge-input generators shared with the card tests
+    (``tests/torch_step_cases.py``, numpy only)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import torch_step_cases
+
+    return torch_step_cases
 
 
-def random_packed(rng, C, st: dict, cols: np.ndarray, width: int) -> np.ndarray:
-    """A packed mailbox (MBOX_FIELDS + MBOX_SCAT_FIELDS rows) whose
-    column j addresses group ``cols[j]`` (pad columns: msg_type 0)."""
-    n = len(cols)
-    g = st["role"].shape[0]
-    R = {f: i for i, f in enumerate(C.MBOX_FIELDS + C.MBOX_SCAT_FIELDS)}
-    out = np.zeros((len(R), width), np.int32)
-    out[R["host_term_idx"]] = -1
-    out[R["host_term_val"]] = -1
-    mt = rng.choice([0, 1, 2, 3, 4, 5, 6], size=n,
-                    p=[0.05, 0.3, 0.35, 0.08, 0.08, 0.07, 0.07])
-    cur = st["current_term"][cols]
-    last = st["last_index"][cols]
-    term = np.clip(cur + rng.integers(-1, 2, n), 0, None)
-    prev = np.clip(last - rng.integers(0, 3, n), 0, None)
-    ring = st["term_suffix"][cols, prev % st["term_suffix"].shape[1]]
-    prev_term = np.where(rng.random(n) < 0.7, ring, ring + 1)
-    vals = {
-        "msg_type": mt, "sender_slot": rng.integers(0, PEERS, n),
-        "term": term, "prev_idx": prev, "prev_term": prev_term,
-        "num_entries": rng.integers(0, 4, n), "entries_last_term": term,
-        "leader_commit": st["commit_index"][cols] + rng.integers(0, 4, n),
-        "success": rng.random(n) < 0.8,
-        "reply_next_idx": np.clip(last + rng.integers(-2, 2, n), 1, None),
-        "reply_last_idx": np.clip(last - rng.integers(0, 2, n), 0, None),
-        "reply_last_term": term,
-        "cand_last_idx": np.clip(last + rng.integers(-2, 3, n), 0, None),
-        "cand_last_term": st["last_term"][cols] + rng.integers(-1, 2, n),
-        "cand_machine_version": rng.integers(0, 3, n),
-        "token": st["pre_vote_token"][cols],
-    }
-    for f, v in vals.items():
-        out[R[f], :n] = v
-    # fused scatter rows: appended runs on distinct groups, watermarks
-    out[R["a_gid"]] = g
-    out[R["w_gid"]] = g
-    na = min(n, width) // 4
-    ag = rng.choice(cols, size=na, replace=False)
-    hi = st["last_index"][ag] + rng.integers(0, 3, na)
-    out[R["a_gid"], :na] = ag
-    out[R["a_lo"], :na] = np.maximum(hi - rng.integers(0, 40, na), 1)
-    out[R["a_hi"], :na] = hi
-    out[R["a_term"], :na] = st["current_term"][ag]
-    nw = min(n, width) // 4
-    wg = rng.choice(cols, size=nw, replace=False)
-    out[R["w_gid"], :nw] = wg
-    out[R["w_idx"], :nw] = st["last_index"][wg]
-    return out
+def step_max_err(torch, C, a, b) -> int:
+    """Largest absolute difference over every state field and egress row
+    of two step results (state, egress), wherever they lie."""
+    (sa, ea), (sb, eb) = a, b
+    err = (ea.cpu().long() - eb.cpu().long()).abs().max().item()
+    for fa, fb in zip(sa, sb):
+        d = (fa.cpu().long() - fb.cpu().long()).abs()
+        err = max(err, d.max().item() if d.numel() else 0)
+    return int(err)
 
 
-def phase_step(torch, C, dev) -> dict:
-    rng = np.random.default_rng(7)
+def step_bound(C, S, state, packed, gidx, out) -> tuple:
+    """(bytes, operations) a step must spend: every state field it reads
+    (all but last_applied) and the packed mailbox (and gidx) read once,
+    every changed field and the egress written once; integer operations
+    counted per column (decisions, P-wide rows, K ring slots) and, on
+    the active set, per group for the scattered copy."""
+    new_state, egress = out
+    nbytes = sum(t.nbytes for f, t in zip(C.GroupState._fields, state)
+                 if f != "last_applied")
+    nbytes += packed.nbytes + (gidx.nbytes if gidx is not None else 0)
+    nbytes += sum(getattr(new_state, f).nbytes for f in S.OUT_FIELDS)
+    nbytes += egress.nbytes
+    g, p = state.match_index.shape
+    k = state.term_suffix.shape[1]
+    cols = packed.shape[1]
+    ops = cols * (150 + 20 * p + 12 * k)
+    if gidx is not None:
+        ops += g * (30 + 4 * p + 12 * k)
+    return nbytes, ops
+
+
+def phase_step(torch, C, S, dev) -> dict:
+    cases = step_cases()
     g = GROUPS
-    fields = random_state_fields(rng, g, PEERS, SUFFIX_K)
-    fields = {
-        f: np.asarray(v, bool if f in ("voting", "active", "votes", "pre_votes")
-                      else np.int32)
-        for f, v in fields.items()
-    }
-    s_dev = C.state_from_numpy(fields, dev)
-    s_cpu = C.state_from_numpy(fields, "cpu")
-    launches0 = C.quorum.LAUNCHES
-    steps = 0
-    for i in range(6):
-        host = C.state_to_numpy(s_cpu)
-        if i % 2 == 0:
-            packed = random_packed(rng, C, host, np.arange(g), g)
-            s_dev, e_dev = C.consensus_step_packed_scat(
-                s_dev, torch.from_numpy(packed).to(dev))
-            s_cpu, e_cpu = C.consensus_step_packed_scat(
-                s_cpu, torch.from_numpy(packed))
-        else:
-            n = 1500
-            cap = 2048
-            cols = np.sort(rng.choice(g, size=n, replace=False))
-            packed = random_packed(rng, C, host, cols, cap)
-            gidx = np.full(cap, g, np.int32)
-            gidx[:n] = cols
-            s_dev, e_dev = C.consensus_step_packed_sub_scat(
-                s_dev, torch.from_numpy(packed).to(dev),
-                torch.from_numpy(gidx).to(dev))
-            s_cpu, e_cpu = C.consensus_step_packed_sub_scat(
-                s_cpu, torch.from_numpy(packed), torch.from_numpy(gidx))
-        steps += 1
-        if not torch.equal(e_dev.cpu(), e_cpu):
-            bad = [f for r, f in enumerate(C.EGRESS_FIELDS)
-                   if not torch.equal(e_dev[r].cpu(), e_cpu[r])]
-            raise AssertionError(f"step {i}: egress rows differ: {bad}")
-        a, b = C.state_to_numpy(s_dev), C.state_to_numpy(s_cpu)
-        bad = [f for f in a if not np.array_equal(a[f], b[f])]
-        if bad:
-            raise AssertionError(f"step {i}: state fields differ: {bad}")
-    if C.quorum.LAUNCHES - launches0 != steps:
-        raise AssertionError("the CUDA steps did not run the quorum kernel")
-    # sanity: the scan did advance commit for some leaders
-    if not (C.state_to_numpy(s_cpu)["commit_index"] > fields["commit_index"]).any():
+    err = {"full": 0, "sub": 0}
+    steps = {"full": 0, "sub": 0}
+    launches0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+    advanced = False
+    for p in STEP_WIDTHS:
+        for near_max in (False, True):
+            rng = np.random.default_rng(100 * p + near_max)
+            fields = cases.state_fields(rng, g, p, SUFFIX_K, near_max=near_max)
+            s_dev = C.state_from_numpy(fields, dev)
+            s_cpu = C.state_from_numpy(fields, "cpu")
+            for i in range(6 if (p, near_max) == (PEERS, False) else 2):
+                host = C.state_to_numpy(s_cpu)
+                if i % 2 == 0:
+                    kind = "full"
+                    args = (cases.packed(rng, host, np.arange(g), g),)
+                    kern = C.consensus_step_packed_scat
+                    plain = C.consensus_step_packed_scat_plain
+                else:
+                    kind = "sub"
+                    gidx = cases.active_set(rng, g, SUB_REAL, SUB_CAP)
+                    args = (cases.packed(rng, host, gidx, SUB_CAP), gidx)
+                    kern = C.consensus_step_packed_sub_scat
+                    plain = C.consensus_step_packed_sub_scat_plain
+                on_cpu = [torch.from_numpy(a) for a in args]
+                on_dev = [a.to(dev) for a in on_cpu]
+                got = kern(s_dev, *on_dev)
+                torch.cuda.synchronize()
+                want_cpu = plain(s_cpu, *on_cpu)
+                e = max(step_max_err(torch, C, got, plain(s_dev, *on_dev)),
+                        step_max_err(torch, C, got, want_cpu))
+                if e:
+                    raise AssertionError(
+                        f"{kind} step kernel != plain step at P={p}, "
+                        f"near_max={near_max}, step {i} (max err {e})")
+                err[kind] = max(err[kind], e)
+                steps[kind] += 1
+                advanced |= bool(
+                    (want_cpu[0].commit_index > s_cpu.commit_index).any())
+                s_dev, s_cpu = got[0], want_cpu[0]
+    if (S.LAUNCHES_FULL - launches0[0], S.LAUNCHES_SUB - launches0[1]) != (
+            steps["full"], steps["sub"]):
+        raise AssertionError("the CUDA steps did not run the step kernels")
+    if not advanced:
         raise AssertionError("no commit advanced: the inputs exercise nothing")
-    return {"steps": steps}
+
+    # times, bound and device time at the main path's shape
+    rng = np.random.default_rng(3)
+    fields = cases.state_fields(rng, g, PEERS, SUFFIX_K)
+    st = C.state_from_numpy(fields, dev)
+    full = torch.from_numpy(cases.packed(rng, fields, np.arange(g), g)).to(dev)
+    gidx = cases.active_set(rng, g, SUB_REAL, SUB_CAP)
+    sub = torch.from_numpy(cases.packed(rng, fields, gidx, SUB_CAP)).to(dev)
+    gidx = torch.from_numpy(gidx).to(dev)
+    calls = {
+        "full": (lambda: C.consensus_step_packed_scat(st, full),
+                 lambda: C.consensus_step_packed_scat_plain(st, full),
+                 full, None),
+        "sub": (lambda: C.consensus_step_packed_sub_scat(st, sub, gidx),
+                lambda: C.consensus_step_packed_sub_scat_plain(st, sub, gidx),
+                sub, gidx),
+    }
+    out = {"steps": steps}
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for kind, (kern, plain, packed, gi) in calls.items():
+        nbytes, ops = step_bound(C, S, st, packed, gi, kern())
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / ALU_OPS_PER_S * 1e3
+        # the card's own time for the step's launches (memset, pre-pass,
+        # scattered copy, step), without the host's gaps between calls
+        n_prof = 50
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                kern()
+            torch.cuda.synchronize()
+        dev_us = {
+            e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / n_prof
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+        }
+        out[kind] = {
+            "max_abs_err": err[kind], "ms": median_ms(kern),
+            "plain_ms": median_ms(plain),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops,
+            "device_us_per_step": {k: round(v, 3) for k, v in dev_us.items()},
+        }
+    return out
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 
 
-def phase_main(torch, C, dev, workdir: str) -> dict:
+def phase_main(torch, C, S, dev, workdir: str, tag: str,
+               use_kernels: bool = True) -> dict:
+    """The main path with coordinators named ``tag``0..2: through the
+    step kernels, or (``use_kernels=False``) through the plain torch-op
+    step for comparison."""
+    from ra_tpu_torch import obs
     from ra_tpu_torch.log.log import Log
     from ra_tpu_torch.log.segment_writer import SegmentWriter
     from ra_tpu_torch.log.tables import TableRegistry
@@ -311,10 +338,12 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
     from ra_tpu_torch.runtime.coordinator import BatchCoordinator
 
     g_n = GROUPS
-    # device time of each fused step, bracketed with CUDA events (the
-    # coordinator looks the step functions up on the module per call):
-    # (stage, kind) -> event pairs, stage "election", "waves" or
-    # "profiled", kind "full" or "sub"
+    # each fused step's span on the card's timeline, bracketed with CUDA
+    # events, and the host's wall and thread CPU time for the call (the
+    # coordinator looks the step functions up on the module per call;
+    # wall time well above CPU time means the thread waited, for the GIL
+    # or the OS): (stage, kind) -> (events a, b, wall s, cpu s), stage
+    # "election", "waves" or "profiled", kind "full" or "sub"
     step_events = {}
     stage = ["election"]
     orig = {}
@@ -323,27 +352,32 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
         def run(*args):
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
+            w0, c0 = time.perf_counter(), time.thread_time()
             a.record()
             out = fn(*args)
             b.record()
-            step_events.setdefault((stage[0], kind), []).append((a, b))
+            w1, c1 = time.perf_counter(), time.thread_time()
+            step_events.setdefault((stage[0], kind), []).append(
+                (a, b, w1 - w0, c1 - c0))
             return out
         return run
 
     for kind, name in (("full", "consensus_step_packed_scat"),
                        ("sub", "consensus_step_packed_sub_scat")):
         orig[name] = getattr(C, name)
-        setattr(C, name, timed(kind, orig[name]))
+        fn = orig[name] if use_kernels else getattr(C, f"{name}_plain")
+        setattr(C, name, timed(kind, fn))
 
+    node_names = [f"{tag}{i}" for i in range(3)]
     coords = [
-        BatchCoordinator(f"smoke{i}", capacity=g_n, num_peers=PEERS,
+        BatchCoordinator(n, capacity=g_n, num_peers=PEERS,
                          suffix_k=SUFFIX_K, idle_sleep_s=0, device=dev)
-        for i in range(3)
+        for n in node_names
     ]
     storage = []
     try:
         for i, c in enumerate(coords):
-            d = os.path.join(workdir, f"smoke{i}")
+            d = os.path.join(workdir, node_names[i])
             tables = TableRegistry()
             sw = SegmentWriter(os.path.join(d, "data"), tables, c.wal_notify)
             w = Wal(os.path.join(d, "wal"), tables, c.wal_notify,
@@ -355,7 +389,7 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
             tables, w, _sw, d = storage[i]
             return Log(uid, os.path.join(d, "data", uid), tables, w)
 
-        members = lambda g: [(f"g{g}", f"smoke{i}") for i in range(3)]  # noqa: E731
+        members = lambda g: [(f"g{g}", n) for n in node_names]  # noqa: E731
         for i, c in enumerate(coords):
             c.add_groups([
                 (f"g{g}", f"cl{g}", members(g), BenchMachine(),
@@ -381,13 +415,15 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
 
         names = [f"g{g}" for g in range(g_n)]
         by0 = coords[0].by_name
-        # the counts cover the main path only
-        C.quorum.LAUNCHES = 0
+        # the counts cover this run of the main path only
+        S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
         wide0 = C.WIDE_SORT_STEPS
+        counted0 = (sum(c.steps for c in coords),
+                    sum(c.sub_steps for c in coords))
         deadline = time.time() + 600
         t0 = time.perf_counter()
         coords[0].deliver_many(
-            [((n, "smoke0"), ElectionTimeout(), None) for n in names]
+            [((n, node_names[0]), ElectionTimeout(), None) for n in names]
         )
         while not all(by0[n].role == C.R_LEADER for n in names):
             if time.time() > deadline:
@@ -415,8 +451,17 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
                     time.sleep(0.0005)
             return time.perf_counter() - t1
 
+        # the wave-phase split of the measured waves (obs histograms)
+        hists = {ph: [obs.histograms().fetch(("wave", n, ph))
+                      for n in node_names]
+                 for ph, _ in obs.WAVE_STEP_PHASES}
+        for hs in hists.values():
+            for h in hs:
+                h.reset()
         stage[0] = "waves"
         t_waves = run_waves(WAVES)
+        wave_split_ms = {ph: sum(h.total for h in hs) / 1e6
+                         for ph, hs in hists.items()}
         settle()
         wave_steps = sum(c.steps for c in coords) - steps0
         wave_sub = sum(c.sub_steps for c in coords) - sub0
@@ -439,7 +484,8 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
         ]
         busy_us = sum(t for t, _ in kern)
         top = sorted(kern, reverse=True)[:3]
-        launches = C.quorum.LAUNCHES
+        launches = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                    "quorum": C.quorum.LAUNCHES}
         wide = C.WIDE_SORT_STEPS - wide0
         torch.cuda.synchronize()
 
@@ -461,12 +507,28 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
             for f in c.state:
                 if f.device.type != "cuda":
                     raise AssertionError("coordinator state left cuda")
-        if launches == 0:
-            raise AssertionError("the main path never launched the quorum kernel")
+        steps = sum(c.steps for c in coords) - counted0[0]
+        sub_steps = sum(c.sub_steps for c in coords) - counted0[1]
+        if use_kernels:
+            # every step launched its kernel, and no step took the plain
+            # route (whose quorum scan would launch quorum.cu)
+            if (launches["full"], launches["sub"]) != (steps - sub_steps,
+                                                       sub_steps):
+                raise AssertionError(
+                    f"step kernel launches {launches} != steps "
+                    f"{steps - sub_steps} full, {sub_steps} sub")
+            if launches["quorum"]:
+                raise AssertionError("the kernel path launched quorum.cu")
+        elif launches["full"] or launches["sub"]:
+            raise AssertionError("the plain run launched the step kernels")
         if wide:
-            raise AssertionError(f"{wide} steps ran the P > 8 sort path")
+            raise AssertionError(f"{wide} steps ran the quorum scan's P > 8 route")
         step_ms = {
-            f"{st}_{kind}": (len(ev), sum(a.elapsed_time(b) for a, b in ev) / len(ev))
+            f"{st}_{kind}": (
+                len(ev),
+                sum(a.elapsed_time(b) for a, b, _, _ in ev) / len(ev),
+                sum(w for _, _, w, _ in ev) * 1e3 / len(ev),
+                sum(c for _, _, _, c in ev) * 1e3 / len(ev))
             for (st, kind), ev in sorted(step_events.items())
         }
         return {
@@ -474,8 +536,9 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
             "waves_s": t_waves,
             "cmds": WAVES * g_n,
             "durable_cmds_per_s": WAVES * g_n / t_waves,
-            "steps": sum(c.steps for c in coords),
-            "sub_steps": sum(c.sub_steps for c in coords),
+            "steps": steps,
+            "sub_steps": sub_steps,
+            "wave_split_ms": wave_split_ms,
             "wave_steps": wave_steps,
             "wave_sub_steps": wave_sub,
             "launches": launches,
@@ -497,7 +560,30 @@ def phase_main(torch, C, dev, workdir: str) -> dict:
             sw.close()
 
 
-def main() -> int:
+def main_line(km: dict, card: str) -> str:
+    return (
+        f"election {km['election_s']:.3f} s; {km['cmds']} cmds in "
+        f"{km['waves_s']:.3f} s = {km['durable_cmds_per_s']:.1f} durable "
+        f"cmds/s, applied on all 3 replicas; steps {km['steps']} (sub "
+        f"{km['sub_steps']}; waves {km['wave_steps']}, sub "
+        f"{km['wave_sub_steps']}); launches {km['launches']}; step calls "
+        f"by stage and kind, (steps, mean span on the card's timeline ms, "
+        f"mean host wall ms, mean host thread CPU ms): "
+        f"{km['step_ms']}; wave-phase split of the measured waves (ms "
+        f"summed over the 3 coordinators): {km['wave_split_ms']}; native "
+        f"host paths {km['native']}; profiled extra wave: {GROUPS} cmds in "
+        f"{km['profiled_wave_s']:.3f} s, device busy "
+        f"{km['device_busy_ms']:.3f} ms = {km['device_busy_share']:.6f} of "
+        f"its wall time, top kernels (ms) {km['top_kernels']} | {card}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--switch-interval", type=float, default=None)
+    args = ap.parse_args(argv)
+    if args.rounds < 1:
+        ap.error("--rounds must be at least 1")
     import torch
 
     if not torch.cuda.is_available():
@@ -506,6 +592,7 @@ def main() -> int:
     import ra_tpu_torch
     from ra_tpu_torch.ops import consensus as C
     from ra_tpu_torch.ops import kernels, quorum
+    from ra_tpu_torch.ops import step as S
 
     pkg = os.path.dirname(os.path.abspath(ra_tpu_torch.__file__))
     if os.path.dirname(pkg) != HERE:
@@ -518,19 +605,21 @@ def main() -> int:
     card = nvidia_smi_line()
     t_all = time.perf_counter()
 
-    # phase 1: device and build
+    # phase 1: device and build (one nvcc per source, all at once)
     t = time.perf_counter()
-    kernels.build("quorum")
+    names = ("quorum", "step")
+    kernels.build_many(names)
     log(card)
     log(f"phase device: {torch.cuda.get_device_name(0)} | torch "
-        f"{torch.__version__} | cuda {torch.version.cuda} | quorum kernel "
-        f"build {kernels.BUILD_SECONDS['quorum']:.2f} s | "
+        f"{torch.__version__} | cuda {torch.version.cuda} | kernel builds "
+        f"{ {n: round(kernels.BUILD_SECONDS[n], 2) for n in names} } s | "
         f"{time.perf_counter() - t:.2f} s")
-    for line in kernels.BUILD_LOG.get("quorum", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for n in names:
+        for line in kernels.BUILD_LOG.get(n, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {n}: {line.strip()}")
 
-    # phase 2: kernel against its plain version
+    # phase 2: the quorum kernel against its plain version
     t = time.perf_counter()
     kq = phase_kernel(torch, quorum, dev)
     log(f"phase kernel: quorum_scan == plain on {kq['shapes']} shapes "
@@ -540,47 +629,81 @@ def main() -> int:
         f"({kq['bound_by']}, {kq['bytes']} B) | {card} | "
         f"{time.perf_counter() - t:.2f} s")
 
-    # phase 3: the fused step, card against CPU
+    # phase 3: the step kernels against the plain step, card and CPU
     t = time.perf_counter()
-    ks = phase_step(torch, C, dev)
-    log(f"phase step: {ks['steps']} packed steps (scat and sub_scat) at "
-        f"G={GROUPS} P={PEERS} K={SUFFIX_K}: every state field and egress "
-        f"row equal on cuda and cpu | {time.perf_counter() - t:.2f} s")
+    ks = phase_step(torch, C, S, dev)
+    log(f"phase step: step kernels == plain step (on cuda and on cpu) in "
+        f"every state field and egress row over {ks['steps']} packed steps "
+        f"with edge inputs at G={GROUPS}, P={STEP_WIDTHS}, K={SUFFIX_K} "
+        f"(max_abs_err full {ks['full']['max_abs_err']}, sub "
+        f"{ks['sub']['max_abs_err']}) | {time.perf_counter() - t:.2f} s")
+    for kind in ("full", "sub"):
+        r = ks[kind]
+        log(f"phase step, {kind} at G={GROUPS} P={PEERS} K={SUFFIX_K}"
+            f"{'' if kind == 'full' else f' S={SUB_CAP} ({SUB_REAL} real)'}: "
+            f"kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms (medians "
+            f"of {TIMED_CALLS} event-bracketed calls), bound "
+            f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} B, "
+            f"{r['ops']} ops); card time per step by kernel (us): "
+            f"{r['device_us_per_step']} | {card}")
 
-    # phase 4: the main path
-    t = time.perf_counter()
-    workdir = tempfile.mkdtemp(prefix="ra_smoke_")
-    try:
-        km = phase_main(torch, C, dev, workdir)
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-    log(f"phase main: {GROUPS} groups x 3 replicas, WAL-backed: election "
-        f"{km['election_s']:.3f} s; {km['cmds']} cmds in {km['waves_s']:.3f} s "
-        f"= {km['durable_cmds_per_s']:.1f} durable cmds/s, applied on all 3 "
-        f"replicas; steps {km['steps']} (sub {km['sub_steps']}; waves "
-        f"{km['wave_steps']}, sub {km['wave_sub_steps']}); quorum kernel "
-        f"launches {km['launches']}; fused step device time, (steps, mean "
-        f"ms) by stage and kind: {km['step_ms']}; native host paths "
-        f"{km['native']} | {card} | {time.perf_counter() - t:.2f} s")
-    log(f"phase main, profiled extra wave: {GROUPS} cmds in "
-        f"{km['profiled_wave_s']:.3f} s under torch.profiler; device busy "
-        f"{km['device_busy_ms']:.3f} ms = {km['device_busy_share']:.4f} of the "
-        f"wave's wall time; top kernels (ms): {km['top_kernels']} | {card}")
+    # phase 4: the main path through the step kernels, then the same
+    # path through the plain torch-op step for comparison; with --rounds
+    # the order alternates from round to round
+    if args.switch_interval is not None:
+        sys.setswitchinterval(args.switch_interval)
+    log(f"phase main: interpreter switch interval {sys.getswitchinterval()} s")
+    runs = []
+    for rnd in range(args.rounds):
+        order = (True, False) if rnd % 2 == 0 else (False, True)
+        for use_kernels in order:
+            tag = f"{'kern' if use_kernels else 'plain'}{rnd}_"
+            t = time.perf_counter()
+            workdir = tempfile.mkdtemp(prefix="ra_smoke_")
+            try:
+                r = phase_main(torch, C, S, dev, workdir, tag, use_kernels)
+            finally:
+                shutil.rmtree(workdir, ignore_errors=True)
+            runs.append((use_kernels, r))
+            log(f"phase main, round {rnd + 1} of {args.rounds} "
+                f"({'step kernels' if use_kernels else 'plain step, for comparison'}): "
+                f"{GROUPS} groups x 3 replicas, WAL-backed: "
+                f"{main_line(r, card)} | {time.perf_counter() - t:.2f} s")
+    if args.rounds > 1:
+        for use_kernels in (True, False):
+            log(f"phase main, durable cmds/s of every "
+                f"{'kernel' if use_kernels else 'plain'} run in order: "
+                f"{[r['durable_cmds_per_s'] for u, r in runs if u == use_kernels]}")
+    km = next(r for u, r in runs if u)
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
+    replaces = {"full": "ra_tpu/ops/consensus.py:693",
+                "sub": "ra_tpu/ops/consensus.py:703"}
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",
         "route": "cuda",
         "source": "ra_tpu_torch/csrc/quorum.cu",
         "replaces": "ra_tpu/ops/pallas_quorum.py:38",
-        "launches": km["launches"],
+        "launches": km["launches"]["quorum"],
         "max_abs_err": kq["max_abs_err"],
         "ms": kq["ms"],
         "plain_ms": kq["plain_ms"],
         "bound_ms": kq["bound_ms"],
         "bound_by": kq["bound_by"],
         "library_ms": kq["library_ms"],
-    }]}))
+    }] + [{
+        "name": f"step_{kind}",
+        "route": "cuda",
+        "source": "ra_tpu_torch/csrc/step.cu",
+        "replaces": replaces[kind],
+        "launches": km["launches"][kind],
+        "max_abs_err": ks[kind]["max_abs_err"],
+        "ms": ks[kind]["ms"],
+        "plain_ms": ks[kind]["plain_ms"],
+        "bound_ms": ks[kind]["bound_ms"],
+        "bound_by": ks[kind]["bound_by"],
+        "library_ms": None,
+    } for kind in ("full", "sub")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -10,19 +10,22 @@
 // Design: one thread per group over the row-major [G, P] inputs as they are
 // (the TPU kernel's transpose to peers-on-sublanes and its 128-lane padding
 // are not needed). Each thread holds its P values in registers; P is a
-// template parameter (1..8), so the network unrolls fully; only the final
-// pick goes through a P-entry per-thread array. The last partial block is
-// masked.
+// template parameter (1..8), so the network (quorum_net.cuh, shared with
+// the fused step of step.cu) unrolls fully; only the final pick goes
+// through a P-entry per-thread array. The last partial block is masked.
 //
 // Bound on an H100 SXM (3.35 TB/s): the kernel reads G*P int32 matches, G*P
 // bool bytes and G int32 voter counts and writes G int32 results, G*(5P+8)
 // bytes in all: 235,520 bytes at G=10240, P=3, or about 0.07 us. Its
 // operations (a few dozen integer ops a group) are far below the card's
-// rate. At the main path's sizes the kernel is bound by launch latency,
-// and this design does nothing about that bound yet.
+// rate. At the main path's sizes a standalone launch is bound by launch
+// latency; the main path therefore runs the same network inlined in the
+// fused step kernel (step.cu), and this kernel serves the plain step.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "quorum_net.cuh"
 
 namespace {
 
@@ -37,34 +40,7 @@ __global__ void quorum_kernel(const int32_t* __restrict__ match,
   int32_t m[P];
 #pragma unroll
   for (int s = 0; s < P; ++s) m[s] = voting[row + s] ? match[row + s] : -1;
-  // odd-even transposition sort, ascending: P passes sort P values.
-  // Every pass walks all adjacent pairs and keeps those of its parity;
-  // the bounds are compile-time constants, so the loops unroll fully and
-  // the parity test folds away.
-#pragma unroll
-  for (int pass = 0; pass < P; ++pass) {
-#pragma unroll
-    for (int s = 0; s + 1 < P; ++s) {
-      if ((s & 1) == (pass & 1)) {
-        const int32_t lo = min(m[s], m[s + 1]);
-        const int32_t hi = max(m[s], m[s + 1]);
-        m[s] = lo;
-        m[s + 1] = hi;
-      }
-    }
-  }
-  // ascending position clamp(P - 1 - floor(nvoters / 2), 0, P - 1);
-  // '>>' on a signed int is an arithmetic shift, i.e. floor division
-  const int pos = max(0, min(P - 1, P - 1 - (nvoters[i] >> 1)));
-  // The pick reads a small per-thread array at the runtime position.
-  // A register select chain, r = (s == pos) ? m[s] : r over s, came out
-  // wrong at -O3 with nvcc 12.8 for sm_90a (it returned m[P-1] while the
-  // same source at -O0 -G and a host build gave m[pos]); the indexed
-  // read costs P local stores and one load, nothing next to the launch.
-  int32_t sorted[P];
-#pragma unroll
-  for (int s = 0; s < P; ++s) sorted[s] = m[s];
-  out[i] = sorted[pos];
+  out[i] = quorum_pick<P>(m, nvoters[i]);
 }
 
 template <int P>

@@ -29,11 +29,16 @@ Port notes:
   in JAX, plain gathers clamp, ``mode="drop"`` scatters route
   out-of-range rows to a scratch row past the end, ``mode="fill"`` gets
   return the fill value. Nothing here syncs the host with the device;
-- the quorum scan's default backend is the hand-written CUDA kernel
-  (``ops.quorum``). On the TPU, XLA fused the ``jnp.sort`` formulation
-  into the step; eager PyTorch offers no such fusion, so the sort costs
-  several launches where the kernel costs one. On CPU tensors the
-  wrapper runs the plain sort version. ``configure(quorum_backend=
+- the main-path steps ``consensus_step_packed_scat`` and
+  ``consensus_step_packed_sub_scat`` dispatch on the device: CPU
+  tensors run the plain torch-op step (``*_plain`` below); CUDA tensors
+  launch the hand-written step kernel (``ops.step``, ``csrc/step.cu``:
+  scatters, decisions, the quorum network inlined, egress, in a handful
+  of launches, at any peer width) or raise. On the TPU, XLA fused the
+  whole step; eager PyTorch offers no such fusion;
+- in the plain step the quorum scan's default backend is the
+  hand-written CUDA kernel (``ops.quorum``) on CUDA tensors and its
+  plain sort version on CPU tensors. ``configure(quorum_backend=
   "sort")`` selects the plain sort formulation explicitly.
 """
 
@@ -754,19 +759,52 @@ def _apply_packed_scatters(state: GroupState, packed: torch.Tensor) -> GroupStat
     )
 
 
-def consensus_step_packed_scat(state: GroupState, packed: torch.Tensor):
+def consensus_step_packed_scat_plain(state: GroupState, packed: torch.Tensor):
+    """The full-width main-path step on torch ops (the plain version of
+    the step kernel)."""
     state = _apply_packed_scatters(state, packed)
     return consensus_step_packed(state, packed)
 
 
-def consensus_step_packed_sub_scat(
+def consensus_step_packed_sub_scat_plain(
     state: GroupState, packed: torch.Tensor, gidx: torch.Tensor
 ):
+    """The active-set main-path step on torch ops (the plain version of
+    the step kernel)."""
     # scatters apply to the FULL state before the active-set gather
     # (every appended/written group is in the active set by
     # construction, so the gathered sub-batch sees the new tails)
     state = _apply_packed_scatters(state, packed)
     return consensus_step_packed_sub(state, packed, gidx)
+
+
+def consensus_step_packed_scat(state: GroupState, packed: torch.Tensor):
+    """The full-width main-path step: the packed scatters, then the step
+    over every group. CPU tensors run the plain version; CUDA tensors
+    launch the step kernel (or raise)."""
+    from ra_tpu_torch.ops import step  # it reads this module's layouts
+
+    step.check(state, packed)
+    if packed.device.type == "cpu":
+        return consensus_step_packed_scat_plain(state, packed)
+    changed, egress = step.launch_full(state, packed)
+    return state._replace(**changed), egress
+
+
+def consensus_step_packed_sub_scat(
+    state: GroupState, packed: torch.Tensor, gidx: torch.Tensor
+):
+    """The active-set main-path step: the packed scatters on the full
+    state, then the step over the groups named by ``gidx`` (pad ids
+    gather a clamped row and drop their writes). Dispatches as
+    ``consensus_step_packed_scat`` does."""
+    from ra_tpu_torch.ops import step
+
+    step.check(state, packed, gidx)
+    if packed.device.type == "cpu":
+        return consensus_step_packed_sub_scat_plain(state, packed, gidx)
+    changed, egress = step.launch_sub(state, packed, gidx)
+    return state._replace(**changed), egress
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,13 @@
 """Build and load the package's hand-written CUDA kernels.
 
 Each kernel is one CUDA C++ source under ``ra_tpu_torch/csrc/`` with a
-plain C entry point. At first use it is compiled with ``nvcc`` for
+plain C entry point; sources may share headers there through
+``#include "..."``. At first use it is compiled with ``nvcc`` for
 ``sm_90a`` into ``ra_tpu_torch/_build/`` (listed in ``.gitignore``),
-keyed on a hash of the source, and loaded with ``ctypes``. Nothing is
-built at import time, and a failed build raises: no caller falls back
-to a plain version because a kernel is missing.
+keyed on a hash of the source and of every header it includes, and
+loaded with ``ctypes``. Nothing is built at import time, and a failed
+build raises: no caller falls back to a plain version because a kernel
+is missing.
 """
 
 from __future__ import annotations
@@ -13,11 +15,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Iterable, List
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -47,13 +51,43 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_files(src: str) -> List[str]:
+    """``src`` and every file it includes with ``#include "..."``,
+    transitively (resolved beside the including file, as nvcc does)."""
+    seen: List[str] = []
+    todo = [os.path.abspath(src)]
+    while todo:
+        path = todo.pop()
+        if path in seen:
+            continue
+        seen.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        here = os.path.dirname(path)
+        for inc in _INCLUDE.findall(text):
+            todo.append(os.path.abspath(os.path.join(here, inc.decode())))
+    return seen
+
+
+def source_digest(src: str) -> str:
+    """Hex digest of ``src``, the headers it includes and the build flags:
+    a change to any of them names a new library."""
+    h = hashlib.sha256(" ".join(ARCH_FLAGS).encode())
+    for path in sorted(source_files(src)):
+        with open(path, "rb") as f:
+            body = f.read()
+        h.update(os.path.basename(path).encode() + b"\0" + body + b"\0")
+    return h.hexdigest()
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into a shared library (once per source
-    hash) and return its path."""
+    """Compile ``csrc/<name>.cu`` into a shared library (once per hash of
+    the source and its headers) and return its path."""
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(ARCH_FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
+    so = os.path.join(BUILD_DIR, f"{name}-{source_digest(src)[:16]}.so")
     if os.path.exists(so):
         BUILD_SECONDS.setdefault(name, 0.0)
         return so
@@ -74,11 +108,22 @@ def build(name: str) -> str:
     return so
 
 
+def build_many(names: Iterable[str]) -> List[str]:
+    """Build several kernels at once, one ``nvcc`` each, all started
+    together; return their library paths in order."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(build, names))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built at first use."""
+    """The loaded library of kernel ``name``, built at first use. It is
+    loaded as a ``PyDLL``: its entry points only enqueue launches and
+    return in microseconds, so a call keeps the GIL instead of handing
+    it to another thread (the WAL threads) and waiting to get it back."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
+            lib = ctypes.PyDLL(build(name))
             _libs[name] = lib
         return lib

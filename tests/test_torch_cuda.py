@@ -1,9 +1,10 @@
 """The port on a CUDA card: the quorum kernel against its plain version,
-the fused step on the card against the same step on the CPU, and a small
-3-coordinator cluster committing through the kernel. Every test skips
-without a card (the kernels have no CPU mode). Run on a GPU machine from
-the repository root; the file imports no JAX, so it also runs where JAX
-is not installed:
+the step kernels (full width and active set) against the plain torch-op
+step on the card and on the CPU over the edge inputs of
+``torch_step_cases``, and a small 3-coordinator cluster committing
+through the step kernels. Every test skips without a card (the kernels
+have no CPU mode). Run on a GPU machine from the repository root; the
+file imports no JAX, so it also runs where JAX is not installed:
 
     python3 -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
@@ -14,6 +15,9 @@ import torch
 
 from ra_tpu_torch.ops import consensus as C
 from ra_tpu_torch.ops import quorum as Q
+from ra_tpu_torch.ops import step as S
+
+import torch_step_cases as cases
 
 pytestmark = pytest.mark.cuda
 
@@ -80,6 +84,68 @@ def test_fused_step_on_the_card_matches_the_cpu(dev):
     assert (b["commit_index"] > 0).any()
 
 
+def _assert_same(st_a, eg_a, st_b, eg_b, where):
+    eg_a, eg_b = eg_a.cpu(), eg_b.cpu()
+    bad = [f for r, f in enumerate(C.EGRESS_FIELDS)
+           if not torch.equal(eg_a[r], eg_b[r])]
+    assert not bad, f"{where}: egress rows differ: {bad}"
+    a, b = C.state_to_numpy(st_a), C.state_to_numpy(st_b)
+    bad = [f for f in a if not np.array_equal(a[f], b[f])]
+    assert not bad, f"{where}: state fields differ: {bad}"
+
+
+@pytest.mark.parametrize("near_max", [False, True])
+@pytest.mark.parametrize("p", list(range(1, 17)) + [33])
+def test_step_kernels_match_the_plain_step(dev, p, near_max):
+    """Full width and active set, K in {8, 32}, at the peer widths with
+    register instances (1..8) and of the runtime-width instance (9..16,
+    33): the kernel on the card
+    equals the plain step on the card and on the CPU, in every state
+    field and egress row, over the edge inputs; the quorum kernel is
+    not launched on the kernel path."""
+    g = 1000
+    for k in (8, 32):
+        rng = np.random.default_rng(100 * p + k + near_max)
+        f = cases.state_fields(rng, g, p, k, near_max=near_max)
+        cpu, card = C.state_from_numpy(f, "cpu"), C.state_from_numpy(f, dev)
+        packed = cases.packed(rng, f, np.arange(g), g)
+        gidx = cases.active_set(rng, g, 300, 512)
+        sub = cases.packed(rng, f, gidx, 512)
+        runs = (
+            ("full", (packed,), C.consensus_step_packed_scat,
+             C.consensus_step_packed_scat_plain),
+            ("sub", (sub, gidx), C.consensus_step_packed_sub_scat,
+             C.consensus_step_packed_sub_scat_plain),
+        )
+        for kind, args, kernel_fn, plain_fn in runs:
+            host = [torch.from_numpy(a) for a in args]
+            on_card = [a.to(dev) for a in host]
+            counts = (S.LAUNCHES_FULL, S.LAUNCHES_SUB, Q.LAUNCHES)
+            got = kernel_fn(card, *on_card)
+            torch.cuda.synchronize()
+            want = (1, 0) if kind == "full" else (0, 1)
+            assert (S.LAUNCHES_FULL - counts[0], S.LAUNCHES_SUB - counts[1],
+                    Q.LAUNCHES - counts[2]) == want + (0,)
+            where = f"{kind} p={p} k={k} near_max={near_max}"
+            _assert_same(*got, *plain_fn(card, *on_card), where + " card")
+            _assert_same(*got, *plain_fn(cpu, *host), where + " cpu")
+            # the input state is untouched: nothing is updated in place
+            kept = C.state_to_numpy(card)
+            assert all(np.array_equal(kept[n], f[n]) for n in f), where
+
+
+def test_step_kernel_refuses_what_it_cannot_take(dev):
+    rng = np.random.default_rng(5)
+    f = cases.state_fields(rng, 64, 3, 8)
+    card = C.state_from_numpy(f, dev)
+    packed = torch.from_numpy(cases.packed(rng, f, np.arange(64), 64))
+    with pytest.raises(ValueError):  # mailbox left on the host
+        C.consensus_step_packed_scat(card, packed)
+    with pytest.raises(ValueError):  # a strided mailbox
+        wide = torch.zeros((24, 128), dtype=torch.int32, device=dev)
+        C.consensus_step_packed_scat(card, wide[:, ::2])
+
+
 def test_three_coordinators_commit_through_the_kernel(dev):
     from ra_tpu_torch.machine import SimpleMachine
     from ra_tpu_torch.protocol import USR, Command, ElectionTimeout
@@ -104,7 +170,7 @@ def test_three_coordinators_commit_through_the_kernel(dev):
                 worked = c.step_finish() or worked
             return worked
 
-        launches = Q.LAUNCHES
+        launches = S.LAUNCHES_FULL + S.LAUNCHES_SUB
         coords[0].deliver_many(
             [((f"g{g}", "cu0"), ElectionTimeout(), None) for g in range(g_n)])
         for _ in range(200):
@@ -124,7 +190,7 @@ def test_three_coordinators_commit_through_the_kernel(dev):
         for c in coords:
             assert [c.by_name[f"g{g}"].machine_state for g in range(g_n)] == list(range(g_n))
             assert c.state.commit_index.device.type == "cuda"
-        assert Q.LAUNCHES > launches
+        assert S.LAUNCHES_FULL + S.LAUNCHES_SUB > launches
     finally:
         for c in coords:
             c.stop()
