@@ -16,7 +16,11 @@ three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
 WAL-backed logs, cooperative pipelined stepping, through the step
 kernels, and checks that every command was committed and applied on all
 three replicas. The same main path runs once more with the plain
-torch-op step, for comparison within the run.
+torch-op step, for comparison within the run. Last, phase api drives the
+same 10240 groups x 3 replicas on three started coordinators (each with
+its own step thread) through the client API, ``ra_tpu_torch.api``: one
+command and one consistent read per group from 32 client threads, every
+reply and read checked, the replicas of a sample of groups compared.
 
 Options (the defaults are the smoke run):
 
@@ -64,6 +68,20 @@ SUB_CAP = 2048
 # peer widths of phase step: the step kernel's register instances (1..8)
 # and its runtime-width instance (9..16, 33)
 STEP_WIDTHS = tuple(range(1, 17)) + (33,)
+
+# phase api: client threads, groups whose replicas are compared, and the
+# coordinators' election timeout (at full fleet an election round trip
+# takes about a second of host time, so the default 0.15 s would re-arm
+# elections that are merely slow; the lease window is 0.8 of it)
+API_CLIENTS = 32
+API_SAMPLE = 256
+API_ELECTION_TIMEOUT_S = 2.0
+# a consistent read whose heartbeat round lost its replies stays pending
+# until a later read of the same group comes, so a client gives up on an
+# attempt after this long and reads again (reads are idempotent); the
+# retries are counted and printed
+API_READ_TIMEOUT_S = 10.0
+API_READ_ATTEMPTS = 5
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
@@ -323,16 +341,52 @@ def phase_step(torch, C, S, dev) -> dict:
 # phase 4: the main path
 
 
+def open_storage(coords, node_names, workdir: str, storage: list) -> None:
+    """Give each coordinator its node's shared WAL and segment writer
+    under ``workdir/<node>``, appended to ``storage`` as (tables, wal,
+    segment writer, dir), so that the caller closes what was opened."""
+    from ra_tpu_torch.log.segment_writer import SegmentWriter
+    from ra_tpu_torch.log.tables import TableRegistry
+    from ra_tpu_torch.log.wal import Wal
+
+    for n, c in zip(node_names, coords):
+        d = os.path.join(workdir, n)
+        tables = TableRegistry()
+        sw = SegmentWriter(os.path.join(d, "data"), tables, c.wal_notify)
+        w = Wal(os.path.join(d, "wal"), tables, c.wal_notify,
+                segment_writer=sw, max_batch_size=65536)
+        w.notify_many = c.wal_notify_many
+        storage.append((tables, w, sw, d))
+
+
+def wal_logs(storage, g_n: int, chunk: int = 512) -> list:
+    """Per coordinator, the WAL-backed ``Log`` of groups g0..g{n-1} (uid
+    ``g{g}``), built by 8 threads: a Log's directory fsyncs set the
+    set-up's pace and release the GIL, so the fleet's 30720 logs are
+    made in parallel."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ra_tpu_torch.log.log import Log
+
+    def build(job):
+        (tables, w, _sw, d), lo = job
+        return [Log(f"g{g}", os.path.join(d, "data", f"g{g}"), tables, w)
+                for g in range(lo, min(lo + chunk, g_n))]
+
+    jobs = [(st, lo) for st in storage for lo in range(0, g_n, chunk)]
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(build, jobs))
+    per = len(range(0, g_n, chunk))
+    return [[log for part in parts[i * per:(i + 1) * per] for log in part]
+            for i in range(len(storage))]
+
+
 def phase_main(torch, C, S, dev, workdir: str, tag: str,
                use_kernels: bool = True) -> dict:
     """The main path with coordinators named ``tag``0..2: through the
     step kernels, or (``use_kernels=False``) through the plain torch-op
     step for comparison."""
     from ra_tpu_torch import obs
-    from ra_tpu_torch.log.log import Log
-    from ra_tpu_torch.log.segment_writer import SegmentWriter
-    from ra_tpu_torch.log.tables import TableRegistry
-    from ra_tpu_torch.log.wal import Wal
     from ra_tpu_torch.models.bench_machine import BenchMachine
     from ra_tpu_torch.protocol import Command, ElectionTimeout, USR
     from ra_tpu_torch.runtime.coordinator import BatchCoordinator
@@ -376,24 +430,12 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
     ]
     storage = []
     try:
-        for i, c in enumerate(coords):
-            d = os.path.join(workdir, node_names[i])
-            tables = TableRegistry()
-            sw = SegmentWriter(os.path.join(d, "data"), tables, c.wal_notify)
-            w = Wal(os.path.join(d, "wal"), tables, c.wal_notify,
-                    segment_writer=sw, max_batch_size=65536)
-            w.notify_many = c.wal_notify_many
-            storage.append((tables, w, sw, d))
-
-        def mk_log(i, uid):
-            tables, w, _sw, d = storage[i]
-            return Log(uid, os.path.join(d, "data", uid), tables, w)
-
+        open_storage(coords, node_names, workdir, storage)
+        logs = wal_logs(storage, g_n)
         members = lambda g: [(f"g{g}", n) for n in node_names]  # noqa: E731
         for i, c in enumerate(coords):
             c.add_groups([
-                (f"g{g}", f"cl{g}", members(g), BenchMachine(),
-                 mk_log(i, f"g{g}"))
+                (f"g{g}", f"cl{g}", members(g), BenchMachine(), logs[i][g])
                 for g in range(g_n)
             ])
         for c in coords:
@@ -560,6 +602,202 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
             sw.close()
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the client API over started coordinators
+
+
+def percentiles_ms(xs) -> tuple:
+    """(p50, p99) of durations in seconds, in ms."""
+    a = np.asarray(xs, np.float64) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def phase_api(torch, C, S, dev, workdir: str) -> dict:
+    """10240 groups x 3 replicas on three started coordinators (each
+    stepped by its own thread), WAL-backed, leases on, driven only
+    through ``ra_tpu_torch.api``: one command and one consistent read
+    per group from a pool of ``API_CLIENTS`` client threads, every reply
+    and read checked against the group's expected sum, then the replica
+    states of a sample of groups compared through ``api.local_query``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ra_tpu_torch import api, leaderboard
+    from ra_tpu_torch.machine import SimpleMachine
+    from ra_tpu_torch.protocol import ElectionTimeout
+    from ra_tpu_torch.runtime.coordinator import BatchCoordinator
+
+    g_n = GROUPS
+    node_names = [f"api{i}" for i in range(3)]
+    leaderboard.clear()
+    coords = [
+        BatchCoordinator(n, capacity=g_n, num_peers=PEERS, suffix_k=SUFFIX_K,
+                         device=dev, lease=True,
+                         election_timeout_s=API_ELECTION_TIMEOUT_S)
+        for n in node_names
+    ]
+    storage = []
+    try:
+        open_storage(coords, node_names, workdir, storage)
+        logs = wal_logs(storage, g_n)
+        members = lambda g: [(f"g{g}", n) for n in node_names]  # noqa: E731
+        for i, c in enumerate(coords):
+            c.add_groups([
+                (f"g{g}", f"cl{g}", members(g),
+                 SimpleMachine(lambda cmd, s: s + cmd, 0), logs[i][g])
+                for g in range(g_n)
+            ])
+        names = [f"g{g}" for g in range(g_n)]
+        rng = np.random.default_rng(5)
+        values = rng.integers(1, 1 << 20, g_n).tolist()
+
+        # the counts cover this phase only
+        S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
+        counted0 = (sum(c.steps for c in coords),
+                    sum(c.sub_steps for c in coords))
+        t0 = time.perf_counter()
+        for c in coords:
+            c.start()
+        coords[0].deliver_many(
+            [((n, node_names[0]), ElectionTimeout(), None) for n in names])
+        by = [c.by_name for c in coords]
+        deadline = time.time() + 600
+
+        def leader_of(n):
+            for i in range(3):
+                if by[i][n].role == C.R_LEADER:
+                    return i
+            return None
+
+        while any(leader_of(n) is None for n in names):
+            if time.time() > deadline:
+                raise TimeoutError("api phase: leader election incomplete")
+            time.sleep(0.05)
+        t_elect = time.perf_counter() - t0
+
+        def command(g):
+            t = time.perf_counter()
+            reply, _leader = api.process_command(
+                (f"g{g}", node_names[0]), values[g], timeout=120)
+            dt = time.perf_counter() - t
+            if reply != values[g]:
+                raise AssertionError(
+                    f"group g{g}: command replied {reply}, want {values[g]}")
+            return dt
+
+        # every 4th read enters at a follower with no leader hint, so
+        # that the follower's redirect carries the client to the leader
+        def read(g):
+            """(latency, attempts that timed out) of one checked read."""
+            name, follow = f"g{g}", g % 4 == 0
+            if follow:
+                lead = leader_of(name)
+                sid = (name, node_names[(lead + 1) % 3])
+                leaderboard.clear(f"cl{g}")
+            else:
+                sid = (name, node_names[g % 3])
+            t = time.perf_counter()
+            for timed_out in range(API_READ_ATTEMPTS):
+                try:
+                    out = api.consistent_query(sid, lambda s: s,
+                                               timeout=API_READ_TIMEOUT_S)
+                    break
+                except TimeoutError:
+                    if timed_out == API_READ_ATTEMPTS - 1:
+                        raise
+            dt = time.perf_counter() - t
+            if out[0] != "ok" or out[1] != values[g]:
+                raise AssertionError(
+                    f"group {name}: consistent read {out[:2]}, want {values[g]}")
+            return dt, timed_out
+
+        def replicas(g):
+            return [api.local_query((f"g{g}", n), lambda s: s, timeout=60)[1]
+                    for n in node_names]
+
+        sample = np.random.default_rng(6).choice(
+            g_n, API_SAMPLE, replace=False).tolist()
+        with ThreadPoolExecutor(API_CLIENTS) as pool:
+            t1 = time.perf_counter()
+            cmd_lat = list(pool.map(command, range(g_n)))
+            t_cmds = time.perf_counter() - t1
+            t1 = time.perf_counter()
+            reads = list(pool.map(read, range(g_n)))
+            t_reads = time.perf_counter() - t1
+            read_lat = [dt for dt, _ in reads]
+            # the replicas of a sample of groups hold the same state (a
+            # follower applies once a later AER or probe brings it the
+            # commit index)
+            lagging = sample
+            while lagging:
+                if time.time() > deadline:
+                    raise AssertionError(
+                        f"api phase: replicas differ in {len(lagging)} of "
+                        f"{len(sample)} sampled groups, e.g. g{lagging[0]}")
+                states = dict(zip(lagging, pool.map(replicas, lagging)))
+                lagging = [g for g, s in states.items()
+                           if s != [values[g]] * 3]
+                if lagging:
+                    time.sleep(0.2)
+        read_counts = {k: sum(c.counters.get(k) for c in coords)
+                       for k in ("read_lease_served", "read_quorum_fallback")}
+        read_counts["reads_retried"] = sum(n for _, n in reads)
+        dropped = [c.transport.dropped for c in coords]
+    finally:
+        # followers first: a running coordinator that sees the leaders'
+        # node stop arms one election timer thread per group it follows
+        for c in reversed(coords):
+            c.stop()
+        for _tables, w, sw, _d in storage:
+            w.close()
+            sw.close()
+        leaderboard.clear()
+    torch.cuda.synchronize()
+    launches = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                "quorum": C.quorum.LAUNCHES}
+    steps = sum(c.steps for c in coords) - counted0[0]
+    sub_steps = sum(c.sub_steps for c in coords) - counted0[1]
+    if launches["full"] + launches["sub"] == 0:
+        raise AssertionError("the api phase launched no step kernel")
+    if (launches["full"], launches["sub"]) != (steps - sub_steps, sub_steps):
+        raise AssertionError(
+            f"step kernel launches {launches} != steps {steps - sub_steps} "
+            f"full, {sub_steps} sub")
+    if launches["quorum"]:
+        raise AssertionError("the api phase launched quorum.cu")
+    for c in coords:
+        for f in c.state:
+            if f.device.type != dev.type:
+                raise AssertionError(f"coordinator state left {dev.type}")
+    cp50, cp99 = percentiles_ms(cmd_lat)
+    rp50, rp99 = percentiles_ms(read_lat)
+    return {
+        "election_s": t_elect, "cmds_per_s": g_n / t_cmds,
+        "cmd_p50_ms": cp50, "cmd_p99_ms": cp99,
+        "reads_per_s": g_n / t_reads, "read_p50_ms": rp50,
+        "read_p99_ms": rp99, "reads": read_counts, "dropped": dropped,
+        "launches": launches,
+        "steps": steps, "sub_steps": sub_steps, "sample": len(sample),
+    }
+
+
+def api_line(ka: dict, card: str) -> str:
+    return (
+        f"{GROUPS} groups x 3 replicas on 3 started coordinators, WAL-backed, "
+        f"lease on, {API_CLIENTS} client threads: election {ka['election_s']:.3f} s; "
+        f"{GROUPS} commands through api.process_command at "
+        f"{ka['cmds_per_s']:.1f} cmds/s, latency p50 {ka['cmd_p50_ms']:.3f} ms "
+        f"p99 {ka['cmd_p99_ms']:.3f} ms (call to return), every reply checked; "
+        f"{GROUPS} api.consistent_query reads (every 4th entering at a "
+        f"follower with no leader hint) at {ka['reads_per_s']:.1f} reads/s, "
+        f"latency p50 {ka['read_p50_ms']:.3f} ms p99 {ka['read_p99_ms']:.3f} ms, "
+        f"every read checked; counters {ka['reads']} (reads_retried: "
+        f"attempts that timed out after {API_READ_TIMEOUT_S} s); messages "
+        f"shed by each coordinator's transport {ka['dropped']}; replicas equal in "
+        f"{ka['sample']} sampled groups (api.local_query); steps "
+        f"{ka['steps']} (sub {ka['sub_steps']}); launches {ka['launches']} "
+        f"| {card}")
+
+
 def main_line(km: dict, card: str) -> str:
     return (
         f"election {km['election_s']:.3f} s; {km['cmds']} cmds in "
@@ -675,6 +913,16 @@ def main(argv=None) -> int:
                 f"{'kernel' if use_kernels else 'plain'} run in order: "
                 f"{[r['durable_cmds_per_s'] for u, r in runs if u == use_kernels]}")
     km = next(r for u, r in runs if u)
+
+    # phase 5: the client API over started coordinators, through the
+    # step kernels
+    t = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ra_smoke_api_")
+    try:
+        ka = phase_api(torch, C, S, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase api: {api_line(ka, card)} | {time.perf_counter() - t:.2f} s")
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",

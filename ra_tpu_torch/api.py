@@ -1,0 +1,889 @@
+"""Public client/ops API.
+
+The framework's counterpart of the reference's ``ra`` module
+(reference: ``src/ra.erl`` — start_cluster/start_server/restart/delete,
+process_command/pipeline_command, local/leader/consistent queries,
+membership management, leadership transfer, overview/metrics). Operates
+on in-proc nodes registered in ``ra_tpu_torch.runtime.transport.registry()``;
+server ids are ``(name, node_name)`` tuples.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+from ra_tpu_torch import leaderboard
+from ra_tpu_torch.machine import Machine
+from ra_tpu_torch.protocol import Command, ElectionTimeout, RA_JOIN, RA_LEAVE, ServerId, USR
+from ra_tpu_torch.runtime.node import RaNode
+from ra_tpu_torch.runtime.transport import registry as node_registry
+from ra_tpu_torch.system import SystemConfig
+from ra_tpu_torch.utils.lib import partition_parallel
+
+
+class Future:
+    __slots__ = ("_evt", "value")
+
+    def __init__(self) -> None:
+        self._evt = threading.Event()
+        self.value: Any = None
+
+    def set_result(self, v: Any) -> None:
+        self.value = v
+        self._evt.set()
+
+    def result(self, timeout: Optional[float] = None) -> Any:
+        if not self._evt.wait(timeout):
+            raise TimeoutError("ra_tpu_torch call timed out")
+        return self.value
+
+    def done(self) -> bool:
+        return self._evt.is_set()
+
+
+class RaError(Exception):
+    pass
+
+
+class StaleReadError(RaError):
+    """A bounded local read (``local_query`` with ``max_staleness_s``)
+    could not be served within the requested staleness bound
+    (docs/INTERNALS.md §20). ``staleness`` is the replica's provable
+    upper bound (``inf`` until it has applied a leader freshness
+    stamp); ``leader_hint`` names where a linearizable retry can go."""
+
+    def __init__(self, staleness: float, leader_hint):
+        super().__init__(
+            f"local read exceeds staleness bound: {staleness:.3f}s "
+            f"(leader hint: {leader_hint})"
+        )
+        self.staleness = staleness
+        self.leader_hint = leader_hint
+
+
+class RaNoSpace(RaError):
+    """Typed ``RA_NOSPACE`` backoff error (docs/INTERNALS.md §21): the
+    target node is storage-degraded (space-class WAL failure or hard
+    disk watermark) and kept rejecting the command for the caller's
+    whole deadline. The command was provably never appended — the node
+    classifies ENOSPC/EDQUOT before any log mutation — so retrying
+    later is exactly-once safe. ``code`` is the stable machine-readable
+    tag (always ``"RA_NOSPACE"``)."""
+
+    code = "RA_NOSPACE"
+
+    def __init__(self, target):
+        super().__init__(
+            f"RA_NOSPACE: {target} is storage-degraded (no disk space); "
+            f"command was not appended — back off and retry"
+        )
+        self.target = target
+
+
+def _node(node_name: str) -> RaNode:
+    node = node_registry().get(node_name)
+    if node is None:
+        raise RaError(f"node {node_name!r} not running")
+    return node
+
+
+# ---------------------------------------------------------------------------
+# system / cluster lifecycle
+
+
+def start_node(name: str, config: Optional[SystemConfig] = None, **kw) -> RaNode:
+    return RaNode(name, config=config, **kw)
+
+
+def stop_node(name: str) -> None:
+    node = node_registry().get(name)
+    if node is not None:
+        node.stop()
+
+
+def _mgmt_route(node_name: str):
+    """A callable mgmt transport for a node: local nodes are called
+    directly; remote nodes are reached over any local TCP transport
+    (reference: rpc:call management, src/ra_server_sup_sup.erl:33-50)."""
+    node = node_registry().get(node_name)
+    if node is not None:
+        return node
+    for local in node_registry().names():
+        n = node_registry().get(local)
+        t = getattr(n, "transport", None)
+        if t is not None and hasattr(t, "mgmt_call"):
+            return _RemoteNode(t, node_name)
+    raise RaError(f"no route to node {node_name!r} (no local TCP transport)")
+
+
+class _RemoteNode:
+    """Duck-typed remote management handle over TcpTransport.mgmt_call."""
+
+    def __init__(self, transport, node_name: str):
+        self._t = transport
+        self._node = node_name
+
+    def start_server(self, name, cluster_name, machine, members,
+                     machine_config=None, machine_factory=None, **_kw):
+        if machine is not None and machine_factory is None:
+            raise RaError(
+                "remote start_server requires machine_factory (machine "
+                "objects do not travel across nodes)"
+            )
+        return tuple(self._t.mgmt_call(self._node, "start_server", {
+            "name": name, "cluster_name": cluster_name, "members": members,
+            "machine_config": machine_config, "machine_factory": machine_factory,
+        }))
+
+    def restart_server(self, name, overrides=None, **_kw):
+        return tuple(self._t.mgmt_call(
+            self._node, "restart_server", {"name": name, "overrides": overrides}
+        ))
+
+    def stop_server(self, name, **_kw):
+        return self._t.mgmt_call(self._node, "stop_server", {"name": name})
+
+    def delete_server(self, name, **_kw):
+        return self._t.mgmt_call(self._node, "delete_server", {"name": name})
+
+    def trigger_election(self, name):
+        return self._t.mgmt_call(self._node, "trigger_election", {"name": name})
+
+    def overview(self):
+        return self._t.mgmt_call(self._node, "overview", {})
+
+
+def start_server(
+    server_id: ServerId,
+    cluster_name: str,
+    machine: Optional[Machine],
+    members: Sequence[ServerId],
+    machine_config: Optional[dict] = None,
+    machine_factory: Optional[str] = None,
+    extra_cfg: Optional[dict] = None,
+) -> ServerId:
+    """``extra_cfg`` carries optional ServerConfig knobs (e.g.
+    ``{"lease": True}``, docs/INTERNALS.md §20); it is persisted with
+    the server config so restarts keep the same behavior. Local nodes
+    only — remote management calls ignore it."""
+    name, node_name = server_id
+    return _mgmt_route(node_name).start_server(
+        name, cluster_name, machine, tuple(members),
+        machine_config=machine_config, machine_factory=machine_factory,
+        _extra_cfg=extra_cfg,
+    )
+
+
+def start_cluster(
+    cluster_name: str,
+    machine_factory: Callable[[], Machine],
+    server_ids: Sequence[ServerId],
+    timeout: float = 5.0,
+    extra_cfg: Optional[dict] = None,
+) -> Tuple[List[ServerId], List[ServerId]]:
+    """Start all members (in parallel, like the reference's
+    partition_parallel cluster start), elect a leader, return
+    (started, failed)."""
+    ids = list(server_ids)
+    oks, errs = partition_parallel(
+        lambda sid: start_server(sid, cluster_name, machine_factory(), ids,
+                                 extra_cfg=extra_cfg),
+        ids,
+        timeout_s=timeout,
+    )
+    started = [sid for sid, _ in oks]
+    if started:
+        trigger_election(started[0])
+        wait_for_leader(cluster_name, timeout=timeout)
+    return started, [sid for sid, _ in errs]
+
+
+def delete_cluster(server_ids: Sequence[ServerId]) -> None:
+    ids = [tuple(sid) for sid in server_ids]
+    # resolve the cluster name BEFORE deleting (the directory entries
+    # die with the servers): the leaderboard entry must go too, or
+    # system_overview/cluster_health join against a ghost cluster and
+    # clients keep getting routed at deleted members. Local deletes
+    # prune per member (node.delete_server -> leaderboard.forget_member);
+    # the sweep below covers members deleted on REMOTE nodes, whose
+    # forget_member ran against the remote process's table, not ours.
+    cluster = next(
+        (c for c in (_cluster_of(sid) for sid in ids) if c), None
+    )
+    for name, node_name in ids:
+        try:
+            _mgmt_route(node_name).delete_server(name)
+        except (RaError, RuntimeError, TimeoutError, OSError):
+            pass  # node gone entirely (or unreachable over mgmt)
+    if cluster is not None:
+        got = leaderboard.snapshot().get(cluster)
+        if got is not None and set(got[1]) <= set(ids):
+            # every remaining recorded member was deleted: drop the
+            # entry (a PARTIAL delete keeps it, minus the dead members)
+            leaderboard.clear(cluster)
+
+
+def restart_server(server_id: ServerId, overrides: Optional[dict] = None) -> ServerId:
+    name, node_name = server_id
+    return _mgmt_route(node_name).restart_server(name, overrides=overrides)
+
+
+def stop_server(server_id: ServerId) -> None:
+    name, node_name = server_id
+    _mgmt_route(node_name).stop_server(name)
+
+
+def trigger_election(server_id: ServerId) -> None:
+    name, node_name = server_id
+    target = _mgmt_route(node_name)
+    if isinstance(target, _RemoteNode):
+        target.trigger_election(name)
+        return
+    proc = target.procs.get(name)
+    if proc is None:
+        raise RaError(f"server {server_id} not running")
+    proc.enqueue(ElectionTimeout())
+
+
+def wait_for_leader(cluster_name: str, timeout: float = 5.0) -> ServerId:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        leader = leaderboard.lookup_leader(cluster_name)
+        if leader is not None and _is_running(leader):
+            return leader
+        time.sleep(0.01)
+    raise RaError(f"no leader for {cluster_name!r} within {timeout}s")
+
+
+def _is_running(sid: ServerId) -> bool:
+    node = node_registry().get(sid[1])
+    return node is not None and sid[0] in node.procs
+
+
+# ---------------------------------------------------------------------------
+# commands
+
+
+def process_command(
+    server_id: ServerId,
+    data: Any,
+    timeout: float = 5.0,
+    retry_on_timeout: bool = False,
+) -> Tuple[Any, ServerId]:
+    """Synchronous command: replicated, applied, machine reply returned.
+    Follows redirects to the current leader (reference: leader_call
+    redirect loop src/ra_server_proc.erl:278-299).
+
+    A timeout after the command reached a (possibly stale) leader is
+    surfaced as RaError by default — the command MAY still commit later.
+    ``retry_on_timeout=True`` rotates to other members instead, giving
+    at-least-once semantics (duplicates possible; dedup via machine-level
+    correlations, as in the reference).
+
+    A deposed leader answers its pending commands immediately instead of
+    leaving clients to hang out their timeout: ``("maybe", hint)`` when
+    the entry survives in its log (it MAY still commit — surfaced as
+    RaError unless ``retry_on_timeout``, exactly like the timeout case,
+    but bounded and instant), or ``("redirect", hint)`` when the entry
+    was truncated away (provably dead, retried here exactly-once
+    safely).
+
+    An overloaded leader replies ``("reject", "overloaded")`` (admission
+    window full — see docs/INTERNALS.md §12): the command was NOT
+    appended, so the retry below is exactly-once safe. Rejects (both
+    backends) carry a gate waiter as a third element — a
+    threading.Event the server SETS when the window releases (apply
+    progress frees admission room, or an ingress-ring drain frees lane
+    space) — so the retry is woken by the release itself instead of a
+    fixed sleep poll;
+    the bounded backoff stays only as the upper wait bound (deadline
+    semantics are unchanged, and a reject never appended anything, so
+    the retry remains exactly-once)."""
+    deadline = time.monotonic() + timeout
+    target = server_id
+    tried: set = set()
+    backoff = 0.01
+    last_reject = None  # "overloaded" | "nospace" — types the timeout
+    while time.monotonic() < deadline:
+        fut = Future()
+        cmd = Command(kind=USR, data=data, reply_mode="await_consensus",
+                      from_ref=fut, ts=time.monotonic_ns())
+        if not _try_send(target, cmd):
+            target = _next_target(server_id, target, tried)
+            continue
+        try:
+            remaining = max(0.05, deadline - time.monotonic())
+            # without retries the caller's full timeout applies to this
+            # attempt; with retries each attempt is bounded so a stale/
+            # partitioned leader cannot absorb the whole deadline
+            attempt = min(1.0, remaining) if retry_on_timeout else remaining
+            reply = fut.result(timeout=attempt)
+        except TimeoutError:
+            if not retry_on_timeout:
+                raise RaError(
+                    f"command timed out against {target} (it may still commit)"
+                )
+            tried.add(target)
+            target = _next_target(server_id, target, tried)
+            continue
+        if reply[0] == "ok":
+            return reply[1], reply[2]
+        if reply[0] in ("redirect", "maybe"):
+            # "maybe": leader deposed with the entry still in its log —
+            # the command may yet commit. Same contract as a timeout
+            # (error out unless the caller accepted at-least-once), but
+            # detected and surfaced in milliseconds, not after the full
+            # client timeout (the round-5 wedge shape). "redirect" is a
+            # clean never-appended verdict: always safe to re-send.
+            if reply[0] == "maybe" and not retry_on_timeout:
+                raise RaError(
+                    f"command outcome unknown against {target} (leader "
+                    f"deposed; it may still commit)"
+                )
+            leader = reply[1]
+            tried.add(target)
+            target = leader if leader is not None and leader != target else _next_target(
+                server_id, target, tried
+            )
+            continue
+        if reply[0] == "reject":
+            # reject-with-backoff: the leader's admission window is
+            # full ("overloaded") or its storage is degraded
+            # ("nospace", docs/INTERNALS.md §21). Hold off, then retry
+            # the SAME leader — the command
+            # was never appended, so no duplicate risk. tried is not
+            # updated: this member is healthy. When the reject carries
+            # a window-release gate (both backends do), park on IT —
+            # the server wakes us the moment apply progress (or a ring
+            # drain) frees room, so the backoff only bounds the wait;
+            # a bare 2-tuple reject falls back to the bounded sleep.
+            last_reject = reply[1]
+            wait_s = min(backoff, max(0.0, deadline - time.monotonic()))
+            gate = reply[2] if len(reply) > 2 else None
+            if gate is not None:
+                gate.wait(wait_s)
+            else:
+                time.sleep(wait_s)
+            backoff = min(backoff * 2, 0.25)
+            continue
+        raise RaError(f"command failed: {reply!r}")
+    if last_reject == "nospace":
+        raise RaNoSpace(target)
+    raise RaError("command timed out")
+
+
+def _try_send(sid: ServerId, msg: Any) -> bool:
+    node = node_registry().get(sid[1])
+    if node is None:
+        return False
+    return node.deliver(sid, msg, None)
+
+
+def _try_send_many(sid: ServerId, msgs: list) -> int:
+    """Bulk client ingress: deliver ``msgs`` to one server in a single
+    handoff when the backend supports it (the batch coordinator's
+    ``deliver_many`` — ONE ingress-ring slot for the whole burst,
+    docs/INTERNALS.md §16), else loop ``deliver``. Returns the number
+    handed to the node (an upper bound on what arrives: bulk items may
+    still shed at drain under the backend's overload policy)."""
+    node = node_registry().get(sid[1])
+    if node is None:
+        return 0
+    dm = getattr(node, "deliver_many", None)
+    if dm is not None:
+        dm([(sid, m, None) for m in msgs])
+        return len(msgs)
+    n = 0
+    for m in msgs:
+        if node.deliver(sid, m, None):
+            n += 1
+    return n
+
+
+def _next_target(origin: ServerId, current: ServerId, tried: set) -> ServerId:
+    cluster = leaderboard.lookup_members(_cluster_of(origin) or "")
+    for sid in cluster:
+        if sid not in tried and sid != current and _is_running(sid):
+            return sid
+    time.sleep(0.02)
+    return origin
+
+
+def _cluster_of(sid: ServerId) -> Optional[str]:
+    node = node_registry().get(sid[1])
+    if node is None:
+        return None
+    d = getattr(node, "directory", None)
+    if d is None:
+        # batch coordinators have no directory; groups carry their
+        # cluster name directly
+        g = getattr(node, "by_name", {}).get(sid[0])
+        return getattr(g, "cluster_name", None)
+    uid = d.uid_of(sid[0])
+    return d.cluster_of(uid) if uid else None
+
+
+class AdmissionWindow:
+    """Client-side in-flight command window: bounds how many commands a
+    client keeps outstanding against apply progress instead of queueing
+    unbounded work into the cluster (the client half of the flow-control
+    design in docs/INTERNALS.md §12; servers enforce their own
+    ``max_command_backlog`` and reject past it).
+
+    Usage::
+
+        win = AdmissionWindow(64)
+        if win.acquire(timeout=1.0):      # blocks while the window is full
+            try:  ... issue the command ...
+            finally: win.release()        # on ack/timeout/reject
+
+    Counters (``("admission", name)`` in ra_tpu_torch.counters): ``admitted``,
+    ``throttled`` (acquire had to wait), ``in_flight`` gauge."""
+
+    FIELDS = [
+        ("admitted", "counter", "commands admitted through the window"),
+        ("throttled", "counter", "acquisitions that had to wait"),
+        ("in_flight", "gauge", "commands currently outstanding"),
+    ]
+
+    def __init__(self, limit: int, name: str = "client"):
+        from ra_tpu_torch import counters as _counters
+
+        if limit <= 0:
+            raise ValueError("admission window limit must be positive")
+        self.limit = limit
+        self._sem = threading.BoundedSemaphore(limit)
+        self._n = 0
+        self._n_lock = threading.Lock()
+        self.counters = _counters.new(("admission", name), self.FIELDS)
+
+    def acquire(self, timeout: Optional[float] = None) -> bool:
+        if not self._sem.acquire(blocking=False):
+            self.counters.incr("throttled")
+            if not self._sem.acquire(timeout=timeout):
+                return False
+        with self._n_lock:
+            self._n += 1
+            self.counters.put("in_flight", self._n)
+        self.counters.incr("admitted")
+        return True
+
+    def release(self) -> None:
+        with self._n_lock:
+            self._n -= 1
+            self.counters.put("in_flight", self._n)
+        self._sem.release()
+
+
+def pipeline_command(
+    server_id: ServerId, data: Any, correlation: Any, who: Any,
+    priority: str = "normal",
+) -> bool:
+    """Async command: the applied notification arrives on the client sink
+    registered as ``who`` (reference: ra:pipeline_command + {applied,
+    Corrs} ra_events). ``priority="low"`` buffers the command behind
+    normal traffic, drained in bounded slices.
+
+    At-most-once: an overloaded leader may shed the command past its
+    admission window (counted in ``commands_dropped_overload``) — the
+    applied notification then never arrives, and the caller must
+    resend by correlation, exactly as with a lost message (the
+    reference gives pipeline_command the same non-guarantee)."""
+    cmd = Command(kind=USR, data=data, reply_mode=("notify", correlation, who),
+                  priority=priority, ts=time.monotonic_ns())
+    return _try_send(server_id, cmd)
+
+
+def register_client(node_name: str, who: Any, cb: Callable[[ServerId, list], None]) -> None:
+    _node(node_name).register_client_sink(who, cb)
+
+
+# ---------------------------------------------------------------------------
+# queries
+
+
+# leader-bound queries chase at most this many member-supplied
+# redirect hints before falling back to the leaderboard; during churn
+# two deposed members can point at each other indefinitely otherwise
+MAX_REDIRECT_HOPS = 4
+
+
+def local_query(server_id: ServerId, fn: Callable[[Any], Any], timeout: float = 5.0,
+                max_staleness_s: Optional[float] = None):
+    """Query any member's machine state directly (possibly stale).
+
+    ``max_staleness_s`` bounds the staleness instead of accepting any:
+    the member answers only when its leader-stamped freshness floor
+    proves its applied state is at most that many (leader wall-clock)
+    seconds old, and raises ``StaleReadError`` otherwise
+    (docs/INTERNALS.md §20). Requires the cluster to run with leases
+    enabled — lease-off leaders never stamp, so every bounded read
+    then fails conservatively."""
+    fut = Future()
+    msg = (
+        ("local_query", fn, fut) if max_staleness_s is None
+        else ("local_query", fn, fut, max_staleness_s)
+    )
+    if not _try_send(server_id, msg):
+        raise RaError(f"server {server_id} unreachable")
+    out = fut.result(timeout)
+    if out[0] == "stale":
+        raise StaleReadError(out[1], out[2])
+    return out
+
+
+def leader_query(server_id: ServerId, fn: Callable[[Any], Any], timeout: float = 5.0):
+    """Query the leader's (uncommitted-read) machine state."""
+    deadline = time.monotonic() + timeout
+    cluster = _cluster_of(server_id)
+    target = leaderboard.lookup_leader(cluster or "") or server_id
+    for hop in range(MAX_REDIRECT_HOPS + 1):
+        fut = Future()
+        if not _try_send(target, ("leader_query", fn, fut)):
+            raise RaError(f"leader {target} unreachable")
+        out = fut.result(max(0.05, deadline - time.monotonic()))
+        if out[0] != "redirect":
+            return out
+        if out[1] is None:
+            raise RaError("no leader")
+        # hop 1 trusts the member's hint; after that the hints have
+        # proven stale — re-consult the leaderboard before giving up
+        if hop >= 1 and cluster:
+            target = leaderboard.lookup_leader(cluster) or out[1]
+        else:
+            target = out[1]
+    raise RaError(
+        f"leader_query exceeded {MAX_REDIRECT_HOPS} redirect hops"
+    )
+
+
+def consistent_query(
+    server_id: ServerId, fn: Callable[[Any], Any], timeout: float = 5.0
+):
+    """Linearizable read: served locally under a valid leader lease,
+    otherwise the leader confirms leadership with a quorum heartbeat
+    round before answering (reference: heartbeat query_index protocol;
+    docs/INTERNALS.md §20)."""
+    deadline = time.monotonic() + timeout
+    cluster = _cluster_of(server_id)
+    target = leaderboard.lookup_leader(cluster or "") or server_id
+    hops = 0
+    while time.monotonic() < deadline:
+        fut = Future()
+        if not _try_send(target, ("consistent_query", fn, fut)):
+            time.sleep(0.02)
+            target = leaderboard.lookup_leader(cluster or "") or server_id
+            continue
+        out = fut.result(max(0.05, deadline - time.monotonic()))
+        if out[0] == "redirect":
+            hops += 1
+            if hops > MAX_REDIRECT_HOPS:
+                # stale hints chasing each other during churn: pause a
+                # beat, then restart routing from the leaderboard
+                hops = 0
+                time.sleep(0.02)
+                target = (
+                    leaderboard.lookup_leader(cluster or "") or server_id
+                )
+                continue
+            target = out[1] or leaderboard.lookup_leader(cluster or "") \
+                or target
+            continue
+        return out
+    raise RaError("consistent_query timed out")
+
+
+def members(server_id: ServerId, timeout: float = 5.0) -> Tuple[List[ServerId], ServerId]:
+    def get_members(s):
+        # Server exposes members() as a method; coordinator GroupHost as
+        # a plain attribute
+        m = s.members
+        return list(m() if callable(m) else m)
+
+    fut = Future()
+    if not _try_send(server_id, ("state_query", get_members, fut)):
+        raise RaError(f"server {server_id} unreachable")
+    out = fut.result(timeout)
+    return out[1], out[2]
+
+
+def member_overview(server_id: ServerId, timeout: float = 5.0) -> dict:
+    fut = Future()
+    if not _try_send(server_id, ("state_query", lambda s: s.overview(), fut)):
+        raise RaError(f"server {server_id} unreachable")
+    return fut.result(timeout)[1]
+
+
+def key_metrics(server_id: ServerId, timeout: float = 5.0) -> dict:
+    def km(s):
+        li, lt = s.log.last_index_term()
+        return {
+            "state": s.role,
+            "leader": s.leader_id,
+            "term": s.current_term,
+            "commit_index": s.commit_index,
+            "last_applied": s.last_applied,
+            "last_index": li,
+            "machine_version": s.effective_machine_version,
+        }
+
+    fut = Future()
+    if not _try_send(server_id, ("state_query", km, fut)):
+        raise RaError(f"server {server_id} unreachable")
+    return fut.result(timeout)[1]
+
+
+# ---------------------------------------------------------------------------
+# membership / leadership
+
+
+def _leader_control(server_id: ServerId, msg_builder, timeout: float = 5.0):
+    deadline = time.monotonic() + timeout
+    cluster = _cluster_of(server_id)
+    target = leaderboard.lookup_leader(cluster or "") or server_id
+    tried: set = set()
+    while time.monotonic() < deadline:
+        fut = Future()
+        if not _try_send(target, msg_builder(fut)):
+            tried.add(target)
+            target = _next_target(server_id, target, tried)
+            continue
+        try:
+            out = fut.result(max(0.05, deadline - time.monotonic()))
+        except TimeoutError:
+            break
+        if isinstance(out, tuple) and out and out[0] in ("redirect", "maybe"):
+            # membership commands are self-deduplicating (a re-sent
+            # join/leave resolves to already_member/not_member), so a
+            # "maybe" deposition verdict is safe to retry here
+            tried.add(target)
+            target = out[1] or _next_target(server_id, target, tried)
+            continue
+        if isinstance(out, tuple) and out and out[0] == "reject":
+            time.sleep(min(0.05, max(0.0, deadline - time.monotonic())))
+            continue  # admission window full: back off, same leader
+        return out
+    raise RaError("leader control call timed out")
+
+
+def add_member(server_id: ServerId, new_member: ServerId, voter: bool = True,
+               timeout: float = 5.0):
+    return _leader_control(
+        server_id,
+        lambda fut: Command(kind=RA_JOIN, data=(new_member, voter),
+                            reply_mode="await_consensus", from_ref=fut),
+        timeout,
+    )
+
+
+def remove_member(server_id: ServerId, member: ServerId, timeout: float = 5.0):
+    return _leader_control(
+        server_id,
+        lambda fut: Command(kind=RA_LEAVE, data=member,
+                            reply_mode="await_consensus", from_ref=fut),
+        timeout,
+    )
+
+
+def transfer_leadership(server_id: ServerId, target: ServerId, timeout: float = 5.0):
+    return _leader_control(
+        server_id, lambda fut: ("transfer_leadership", target, fut), timeout
+    )
+
+
+def force_shrink_members_to_current_member(server_id: ServerId, timeout: float = 5.0):
+    """DANGEROUS disaster-recovery escape hatch: rewrite the member's
+    cluster to itself alone and elect it (reference:
+    ra:force_shrink_members_to_current_member)."""
+    fut = Future()
+    if not _try_send(server_id, ("force_shrink", fut)):
+        raise RaError(f"server {server_id} unreachable")
+    return fut.result(timeout)
+
+
+def read_entries(server_id: ServerId, indexes, timeout: float = 5.0):
+    """External sparse log read (reference: ra_log_read_plan — read log
+    entries outside the server's apply path)."""
+    idxs = list(indexes)
+    fut = Future()
+    if not _try_send(
+        server_id, ("state_query", lambda s: s.log.sparse_read(idxs), fut)
+    ):
+        raise RaError(f"server {server_id} unreachable")
+    return fut.result(timeout)[1]
+
+
+def read_plan(server_id: ServerId, indexes, timeout: float = 5.0):
+    """Capture a ReadPlan from the server (a tiny in-proc query), to be
+    EXECUTED by the caller outside the server process (reference:
+    ra_log_read_plan.erl:10-31 — partial_read in-proc, exec_read_plan
+    external). Use ``plan.execute()`` (or ``exec_read_plan``) on any
+    thread; the consensus path is never blocked by the reads."""
+    from ra_tpu_torch.log.read_plan import ReadPlan
+
+    idxs = tuple(indexes)
+    fut = Future()
+
+    def capture(s):
+        return (s.cfg.uid, getattr(s.log, "server_dir", ""))
+
+    if not _try_send(server_id, ("state_query", capture, fut)):
+        raise RaError(f"server {server_id} unreachable")
+    uid, server_dir = fut.result(timeout)[1]
+    return ReadPlan(uid=uid, node_name=server_id[1], server_dir=server_dir,
+                    indexes=idxs)
+
+
+# caller-side plan execution (one definition, re-exported)
+from ra_tpu_torch.log.read_plan import exec_read_plan  # noqa: E402,F401
+
+
+def aux_command(server_id: ServerId, cmd: Any, timeout: float = 5.0):
+    fut = Future()
+    if not _try_send(server_id, ("aux", "call", cmd, fut)):
+        raise RaError(f"server {server_id} unreachable")
+    return fut.result(timeout)
+
+
+# ---------------------------------------------------------------------------
+
+
+def overview(node_name: str) -> dict:
+    return _mgmt_route(node_name).overview()
+
+
+def counters_overview() -> dict:
+    """All registered counters/gauges (reference: ra_counters:overview)."""
+    from ra_tpu_torch import counters as _counters
+
+    return _counters.overview()
+
+
+def cluster_commit_rates() -> Dict[str, dict]:
+    """Per-cluster leader + members + smoothed commit rate, joined from
+    the leaderboard and the li-driven ``commit_rate`` gauges (per-server
+    counters on the actor backend; the coordinator-aggregate gauge on
+    the batch backend, reported with ``"scope": "node"``). The single
+    data source for placement / leader balancing (ROADMAP item 1)."""
+    from ra_tpu_torch import counters as _counters
+
+    out: Dict[str, dict] = {}
+    for cluster, (leader, members) in leaderboard.snapshot().items():
+        rate: Optional[int] = None
+        scope = None
+        if leader is not None:
+            c = _counters.fetch((cluster, leader))
+            if c is not None:
+                rate = c.get("commit_rate")
+                scope = "server"
+            else:
+                cc = _counters.fetch(("coordinator", leader[1]))
+                if cc is not None:
+                    # batch-backed leader: groups share one coordinator-
+                    # aggregate gauge (no per-group counter vectors)
+                    rate = cc.get("commit_rate")
+                    scope = "node"
+        out[cluster] = {
+            "leader": leader,
+            "members": list(members),
+            "commit_rate": rate,
+            "commit_rate_scope": scope,
+        }
+    return out
+
+
+def system_overview(node_name: str, last_events: int = 100) -> dict:
+    """One-call observability surface for a node (parity with the
+    reference's ``ra:overview/1``, extended with the histogram/trace
+    machinery of docs/INTERNALS.md §13): the node overview, every
+    registered counter vector WITH field kind/help, latency-histogram
+    percentiles (wave phases, commit stages, WAL), per-cluster commit
+    rates, the node's per-group health scan (§14), and the most recent
+    flight-recorder events."""
+    from ra_tpu_torch import counters as _counters
+    from ra_tpu_torch import health as _health
+    from ra_tpu_torch import obs as _obs
+
+    return {
+        "node": node_name,
+        "overview": _mgmt_route(node_name).overview(),
+        "counters": _counters.registry().describe_overview(),
+        "histograms": _obs.histograms().overview(),
+        "clusters": cluster_commit_rates(),
+        "health": _health.node_health(node_name),
+        "events": _obs.flight_recorder().events(last=last_events),
+    }
+
+
+def cluster_health(last_events: int = 0) -> dict:
+    """Machine-readable cluster health feed (docs/INTERNALS.md §14) —
+    the data source the placement/rebalancing layer (ROADMAP item 1)
+    consumes, and what ``scripts/ra_top.py`` renders. Merges every
+    registered node health scanner with the leaderboard:
+
+    - ``nodes``     — per-node scan summaries (anomaly counts, the
+      scans/fetches pair that proves the single-fetch discipline);
+    - ``clusters``  — leaderboard leader/members joined with every
+      replica's per-group gauge row (keyed ``group@node``);
+    - ``anomalies`` — all non-quiet rows, worst first (severity, then
+      the largest gap) — the top-of-the-pager view;
+    - ``events``    — optionally, the most recent flight-recorder
+      events (health transitions line up with elections/WAL failures).
+    """
+    from ra_tpu_torch import health as _health
+    from ra_tpu_torch import obs as _obs
+
+    nodes: Dict[str, dict] = {}
+    by_cluster: Dict[str, Dict[str, dict]] = {}
+    anomalies: List[dict] = []
+    for node, sc in sorted(_health.scanners().items()):
+        nodes[node] = sc.summary()
+        for row in sc.rows():
+            by_cluster.setdefault(row["cluster"], {})[
+                f"{row['group']}@{node}"
+            ] = row
+            if row["state"] != "quiet":
+                anomalies.append(row)
+    anomalies.sort(
+        key=lambda r: (
+            # severity is the scanner's state code (health.py: severity
+            # == code, higher worse) — one encoding, no parallel table
+            r["severity"],
+            max(r["commit_gap"], r["backlog"], r["match_gap"]),
+        ),
+        reverse=True,
+    )
+    lb = leaderboard.snapshot()
+    clusters = {}
+    for cl in set(lb) | set(by_cluster):
+        leader, members = lb.get(cl, (None, ()))
+        clusters[cl] = {
+            "leader": leader,
+            "members": list(members),
+            "groups": by_cluster.get(cl, {}),
+        }
+    out = {"nodes": nodes, "clusters": clusters, "anomalies": anomalies}
+    if last_events:
+        out["events"] = _obs.flight_recorder().events(last=last_events)
+    return out
+
+
+def dump_trace(path: str) -> int:
+    """Write the recorded wave-phase spans as Chrome/Perfetto trace
+    JSON (load via chrome://tracing or ui.perfetto.dev). Tracing is off
+    by default: call ``obs.trace_buffer().enable()`` (or run
+    ``profile_wave.py --trace out.json``) first. Returns the number of
+    span events written."""
+    from ra_tpu_torch import obs as _obs
+
+    return _obs.trace_buffer().dump(path)
+
+
+def prometheus_metrics() -> str:
+    """Prometheus text exposition of every counter and histogram
+    (scrape surface; see scripts/obs_smoke.sh for the CI check)."""
+    from ra_tpu_torch import obs as _obs
+
+    return _obs.prometheus_text()

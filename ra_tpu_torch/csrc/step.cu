@@ -56,8 +56,9 @@
 //   C++ is undefined, so they go through wadd/wsub in uint32;
 // - JAX's index modes: a negative id wraps once, an id still out of
 //   range drops its scatter (and the active-set gather clamps it);
-//   self_slot outside [0, P) reads True for the self vote; sender_slot
-//   outside [0, P) matches no peer column.
+//   a self_slot in [-P, 0) wraps once for the self vote and one still
+//   outside [0, P) reads True; sender_slot outside [0, P) matches no
+//   peer column (nor does a negative self_slot in the commit scan).
 //
 // Bound on an H100 SXM (3.35 TB/s): per group the step reads its state
 // (15 int32 scalars, 2 int32 and 4 bool P-wide rows, the K-wide ring)
@@ -435,8 +436,11 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int A = P > 0 ? P : 1;  // register rows (unused when P == 0)
   bool members[A], votes2[A], pre_votes2[A];
   int n_voters = 0, n_votes = 0, n_prevotes = 0;
-  // take_along_axis fill mode: an out-of-range self slot reads True
+  // take_along_axis: a self slot in [-P, 0) wraps once, one still out
+  // of range reads True (fill mode)
   bool self_vote = true;
+  const int32_t self_at =
+      gr.self_slot < 0 ? gr.self_slot + (P > 0 ? P : p) : gr.self_slot;
   if constexpr (P > 0) {
 #pragma unroll
     for (int s = 0; s < P; ++s) {
@@ -449,11 +453,11 @@ __global__ void __launch_bounds__(kThreads)
     }
     // an in-range self slot is read from a per-thread array at its
     // runtime position (quorum_net.cuh says why not a register select)
-    if (gr.self_slot >= 0 && gr.self_slot < P) {
+    if (self_at >= 0 && self_at < P) {
       bool member_of[P];
 #pragma unroll
       for (int s = 0; s < P; ++s) member_of[s] = members[s];
-      self_vote = member_of[gr.self_slot];
+      self_vote = member_of[self_at];
     }
   } else {
     for (int s = 0; s < p; ++s) {
@@ -462,8 +466,8 @@ __global__ void __launch_bounds__(kThreads)
       n_votes += vote_at(s) && m;
       n_prevotes += pre_vote_at(s) && m;
     }
-    if (gr.self_slot >= 0 && gr.self_slot < p) {
-      self_vote = member_at(gr.self_slot);
+    if (self_at >= 0 && self_at < p) {
+      self_vote = member_at(self_at);
     }
   }
   const int quorum_n = n_voters / 2 + 1;

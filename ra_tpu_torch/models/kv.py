@@ -1,0 +1,95 @@
+"""Built-in KV machine demonstrating log-as-value-store.
+
+Capability parity with the reference's ``ra_kv`` (``src/ra_kv.erl:44-103``):
+the machine state holds only ``key -> (raft_index, digest)`` — values are
+NOT kept in machine state; they live in the log and are fetched on demand
+through the log read path. Old values become dead log entries; the
+current ones are advertised via ``live_indexes`` so compaction retains
+exactly the live set.
+
+Commands: ("put", key, value) | ("delete", key). Reads go through
+``get``/aux (log fetch), not apply.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import pickle
+from typing import Any, Dict, Optional, Tuple
+
+from ra_tpu_torch.effects import ReleaseCursor
+from ra_tpu_torch.machine import Machine
+
+
+def _digest(value: Any) -> bytes:
+    return hashlib.blake2b(pickle.dumps(value), digest_size=8).digest()
+
+
+class KvMachine(Machine):
+    """State: {key: (raft_index, digest)}. Values read from the log."""
+
+    def __init__(self, snapshot_interval: int = 256):
+        self.snapshot_interval = snapshot_interval
+
+    def init(self, config) -> Dict[str, Tuple[int, bytes]]:
+        return {}
+
+    def apply(self, meta, cmd, state):
+        if not isinstance(cmd, tuple) or not cmd:
+            return state, None
+        op = cmd[0]
+        if op == "put":
+            _, key, value = cmd
+            state = dict(state)
+            state[key] = (meta["index"], _digest(value))
+            reply = ("ok", meta["index"])
+        elif op == "delete":
+            _, key = cmd
+            state = dict(state)
+            old = state.pop(key, None)
+            reply = ("ok", old[0] if old else None)
+        elif op == "keys":
+            return state, sorted(state.keys())
+        else:
+            return state, ("error", "unknown_op")
+        effects = []
+        if meta["index"] % self.snapshot_interval == 0:
+            # state is tiny (indexes only): snapshot aggressively; live
+            # indexes keep the current values in the log
+            effects.append(ReleaseCursor(meta["index"], state))
+        return state, reply, effects
+
+    def live_indexes(self, state):
+        return sorted(idx for idx, _ in state.values())
+
+    def overview(self, state):
+        return {"type": "kv", "keys": len(state)}
+
+
+def kv_get(api_mod, member, key, timeout: float = 5.0) -> Optional[Any]:
+    """Read a value: consistent-query the index map, then fetch the
+    value from the log (the reference reads via aux/read plans; here the
+    state query returns the index and the log read follows). Retries the
+    state query when the fetch misses — a concurrent overwrite + snapshot
+    may compact the index read in the first round trip."""
+    for _attempt in range(3):
+        out = api_mod.consistent_query(member, lambda st: st.get(key), timeout=timeout)
+        if out[0] != "ok" or out[1] is None:
+            return None
+        idx, digest = out[1]
+        entry = _fetch_log_entry(api_mod, member, idx, timeout)
+        if entry is None:
+            continue  # compacted under us: re-resolve the current index
+        value = entry.cmd.data[2]
+        if _digest(value) != digest:
+            raise IOError(f"kv digest mismatch for {key!r} at idx {idx}")
+        return value
+    return None
+
+
+def _fetch_log_entry(api_mod, member, idx, timeout):
+    fut = api_mod.Future()
+    if not api_mod._try_send(member, ("state_query", lambda s: s.log.fetch(idx), fut)):
+        return None
+    out = fut.result(timeout)
+    return out[1]

@@ -518,11 +518,11 @@ def consensus_step_impl(state: GroupState, mbox: Mailbox) -> Tuple[GroupState, E
     members = state.voting & state.active
     n_voters = torch.sum(members, dim=-1, dtype=_I32)
     quorum_n = n_voters // 2 + 1
-    # take_along_axis fill mode: an out-of-range slot reads True
-    slot_ok = (state.self_slot >= 0) & (state.self_slot < P)
-    self_vote = torch.where(
-        slot_ok, _at_col(members, state.self_slot.clamp(0, P - 1)), True
-    )
+    # take_along_axis: a slot in [-P, 0) wraps once, one still out of
+    # range reads True (fill mode)
+    slot = torch.where(state.self_slot < 0, state.self_slot + P, state.self_slot)
+    slot_ok = (slot >= 0) & (slot < P)
+    self_vote = torch.where(slot_ok, _at_col(members, slot.clamp(0, P - 1)), True)
     n_votes = torch.sum(votes2 & members, dim=-1, dtype=_I32) + (
         self_vote & (role1 == R_CANDIDATE)
     ).to(_I32)

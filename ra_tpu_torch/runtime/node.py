@@ -1,0 +1,1072 @@
+"""RaNode: one running "system" on one node.
+
+Bundles what the reference's per-system supervision tree owns (reference:
+ra_system_sup -> {ra_log_ets, ra_log_sup {meta, segment writer, wal},
+ra_server_sup_sup} plus ra_directory / ra_system_recover): storage infra
+shared by every group on the node, the server-proc registry, the actor
+scheduler, timers, background workers, client notification routing, the
+node failure detector, and crash-restart supervision for server procs.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import shutil
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+from ra_tpu_torch import counters as ra_counters
+from ra_tpu_torch import effects as fx
+from ra_tpu_torch.directory import Directory
+from ra_tpu_torch.log.log import Log
+from ra_tpu_torch.log.meta_store import FileMeta
+from ra_tpu_torch.log.segment_writer import SegmentWriter
+from ra_tpu_torch.log.tables import TableRegistry
+from ra_tpu_torch.log.wal import Wal
+from ra_tpu_torch.machine import Machine
+from ra_tpu_torch.protocol import DownEvent, ElectionTimeout, FromPeer, LogEvent, ServerId
+from ra_tpu_torch.runtime.proc import ServerProc
+from ra_tpu_torch.runtime.scheduler import Scheduler
+from ra_tpu_torch.runtime.timers import TimerService
+from ra_tpu_torch.runtime.transport import InProcTransport, NodeRegistry, registry as node_registry
+from ra_tpu_torch.server import Server, ServerConfig
+from ra_tpu_torch.system import SystemConfig
+
+
+logger = logging.getLogger("ra_tpu_torch")
+
+
+class Monitors:
+    """watcher server-id -> monitored targets (reference: ra_monitors)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        # (kind, target) -> {(watcher_sid, component)}
+        self._tab: Dict[Tuple[str, Any], set] = {}
+
+    def add(self, watcher: ServerId, kind: str, target: Any, component: str) -> None:
+        with self._lock:
+            self._tab.setdefault((kind, target), set()).add((watcher, component))
+
+    def remove(self, watcher: ServerId, kind: str, target: Any) -> None:
+        with self._lock:
+            s = self._tab.get((kind, target))
+            if s:
+                self._tab[(kind, target)] = {(w, c) for w, c in s if w != watcher}
+
+    def watchers(self, kind: str, target: Any) -> List[Tuple[ServerId, str]]:
+        return list(self._tab.get((kind, target), ()))
+
+
+class RaNode:
+    def __init__(
+        self,
+        name: str,
+        config: Optional[SystemConfig] = None,
+        nodes: Optional[NodeRegistry] = None,
+        tick_interval_s: float = 0.25,
+        election_timeout_s: float = 0.15,
+        detector_poll_s: float = 0.1,
+        scheduler_workers: int = 4,
+        tcp: bool = False,
+        clock=None,
+    ):
+        self.name = name
+        from ra_tpu_torch.runtime.clock import WALL
+
+        self.clock = clock or WALL
+        self.config = config or SystemConfig(name="default")
+        self.dir = os.path.join(self.config.data_dir, name)
+        os.makedirs(self.dir, exist_ok=True)
+        self.tick_interval_s = tick_interval_s
+        self.election_timeout_s = election_timeout_s
+
+        self.tables = TableRegistry()
+        self.scheduler = Scheduler(workers=scheduler_workers)
+        self.scheduler.on_crash = self._on_actor_crash
+        # background work gets its OWN scheduler: a disk-heavy
+        # compaction must never occupy a raft worker and starve
+        # mailbox drains (heartbeats, elections)
+        self.bg_scheduler = Scheduler(workers=2)
+        self.timers = TimerService(clock=self.clock)
+        self.bg = ThreadPoolExecutor(max_workers=2, thread_name_prefix=f"ra-bg-{name}")
+        self.monitors = Monitors()
+        self._bg_actors: Dict[str, Any] = {}  # per-server ordered bg queues
+        self.procs: Dict[str, ServerProc] = {}
+        self.ra_state: Dict[str, Tuple[str, str, Any]] = {}
+        self._client_sinks: Dict[Any, Callable[[ServerId, list], None]] = {}
+        self._lock = threading.Lock()
+
+        # boot order mirrors the reference's ra_log_sup: meta/directory
+        # first, then PRE-INIT registers every server's snapshot floor,
+        # THEN WAL recovery runs — so recovery can skip dead indexes
+        # instead of resurrecting them (reference:
+        # src/ra_log_pre_init.erl:31-45, src/ra_log_sup.erl:20-63)
+        from ra_tpu_torch.log.sync_pool import SyncPool
+
+        self.sync_pool = SyncPool()  # serialized snapshot fsyncs (ra_log_sync)
+        self.meta = FileMeta(os.path.join(self.dir, "meta.dat"))
+        self.meta.fault_scope = name
+        self.directory = Directory(self.meta)
+        self._pre_init()
+        self.sw = SegmentWriter(
+            os.path.join(self.dir, "data"),
+            self.tables,
+            self._log_notify,
+            max_entries=self.config.segment_max_entries,
+            threaded=True,
+        )
+        self.sw.fault_scope = name
+        self.wal = Wal(
+            os.path.join(self.dir, "wal"),
+            self.tables,
+            self._log_notify,
+            segment_writer=self.sw,
+            max_size_bytes=self.config.wal_max_size_bytes,
+            max_batch_size=self.config.wal_max_batch_size,
+            sync_method=self.config.wal_sync_method,
+            compute_checksums=self.config.wal_compute_checksums,
+            threaded=True,
+            group_commit_max_delay_s=self.config.wal_group_commit_max_delay_s,
+            group_commit_min_gain=self.config.wal_group_commit_min_gain,
+        )
+        self.wal.fault_scope = name
+        # bulk written-event channel (docs/INTERNALS.md §16): one
+        # callback per fsync batch, fanned to the server actors in one
+        # pass — the actor-backend mirror of the batch coordinator's
+        # wal_notify_many handoff (acks ride the WAL writer thread,
+        # never a per-writer callback loop through the Wal)
+        self.wal.notify_many = self._log_notify_many
+        self.wal.on_failure = self._on_wal_failure
+        # supervision intensity accounting (see SystemConfig
+        # infra_restart_intensity): restart episodes stamped here; when
+        # the window overflows, infra_down latches and healing stops
+        self.infra_down = False
+        self._infra_restarts: deque = deque()
+        # storage-pressure survival plane (docs/INTERNALS.md §21):
+        # degraded/hard admission state, byte watermarks, slow-disk
+        # brownout — all ticked from the detector loop below
+        from ra_tpu_torch.pressure import (
+            BrownoutDetector,
+            DiskWatermark,
+            StoragePressure,
+        )
+
+        self.pressure = StoragePressure(name)
+        self._watermark = DiskWatermark(
+            soft_bytes=self.config.disk_soft_limit_bytes,
+            hard_bytes=self.config.disk_hard_limit_bytes,
+        )
+        self._brownout = BrownoutDetector(
+            enter_us=self.config.brownout_enter_us,
+            exit_us=self.config.brownout_exit_us,
+            streak=self.config.brownout_streak,
+        )
+        self.pressure.counter.put(
+            "disk_soft_limit_bytes", self.config.disk_soft_limit_bytes)
+        self.pressure.counter.put(
+            "disk_hard_limit_bytes", self.config.disk_hard_limit_bytes)
+        self._last_disk_check = 0.0
+        self._reclaim_baseline: Optional[int] = None
+        self._shed_busy = False
+        from ra_tpu_torch import health as ra_health
+        from ra_tpu_torch.detector import PhiAccrualDetector
+
+        self.detector = PhiAccrualDetector(owner=name)
+        # per-group health scanner (docs/INTERNALS.md §14): the actor-
+        # backend mirror of the coordinator's vectorized scan, fed once
+        # per tick from the detector thread
+        self._health = ra_health.register(name, backend="per_group_actor")
+        self._registry = nodes or node_registry()
+        if tcp:
+            # real sockets: name must be "host:port"; peers are remote
+            # processes (reference analog: Erlang distribution carriers)
+            from ra_tpu_torch.runtime.tcp import TcpTransport
+
+            self.transport = TcpTransport(name, self.deliver)
+            self.transport.detector = self.detector  # adaptive liveness
+            self.transport.on_proc_down_cb = self.on_proc_down
+            self.transport.on_mgmt_cb = self._handle_mgmt
+        else:
+            self.transport = InProcTransport(name, self._registry)
+        self.running = True
+        # the local registry serves in-process clients (api module) even
+        # for TCP nodes
+        self._registry.register(name, self)
+
+        self._node_status: Dict[str, bool] = {}
+        self._detector_poll_s = detector_poll_s
+        self._detector = threading.Thread(
+            target=self._detect_loop, name=f"ra-detector-{name}", daemon=True
+        )
+        self._detector.start()
+
+        if self.config.server_recovery_strategy == "registered":
+            self.recover_registered()
+
+    # ------------------------------------------------------------------
+    # server lifecycle (reference: ra_server_sup_sup start/restart/delete)
+
+    # config keys that may change when a server restarts (reference:
+    # ?MUTABLE_CONFIG_KEYS, src/ra_server_sup_sup.erl:12-21)
+    MUTABLE_CONFIG_KEYS = frozenset(
+        {"machine_config", "max_pipeline_count", "max_aer_batch_size",
+         "max_command_backlog", "machine_upgrade_strategy",
+         "lease", "lease_safety_factor", "lease_drift_epsilon_s"}
+    )
+
+    # _extra_cfg keys re-extracted from the persisted __server_config__
+    # blob on restart/recovery — a key missing here silently reverts to
+    # its default after a crash (the lease knobs MUST survive restarts:
+    # a harness-restarted server running lease-off would skew safety
+    # and bench runs)
+    _PERSISTED_EXTRA_KEYS = (
+        "max_pipeline_count", "max_aer_batch_size", "max_command_backlog",
+        "machine_upgrade_strategy", "lease", "lease_safety_factor",
+        "lease_drift_epsilon_s",
+    )
+
+    def start_server(
+        self,
+        name: str,
+        cluster_name: str,
+        machine: Optional[Machine],
+        initial_members: Tuple[ServerId, ...],
+        uid: Optional[str] = None,
+        machine_config: Optional[dict] = None,
+        machine_factory: Optional[str] = None,
+        _extra_cfg: Optional[dict] = None,
+    ) -> ServerId:
+        with self._lock:
+            if name in self.procs:
+                raise RuntimeError(f"server {name!r} already running on {self.name}")
+            uid = uid or self.directory.uid_of(name) or f"{cluster_name}_{name}"
+            sid: ServerId = (name, self.name)
+            if machine is None:
+                if machine_factory is None:
+                    raise ValueError("machine or machine_factory required")
+                from ra_tpu_torch.machine import resolve_machine_factory
+
+                machine = resolve_machine_factory(machine_factory, machine_config)
+            self.directory.register(uid, name, cluster_name)
+            # persist enough config to restart this server after a crash
+            # — including a resolvable machine factory, so a COLD restart
+            # (fresh process) can rebuild the machine from disk
+            self.meta.store_sync(
+                uid,
+                "__server_config__",
+                {"name": name, "cluster": cluster_name,
+                 "members": tuple(initial_members),
+                 "machine_config": machine_config or {},
+                 "machine_factory": machine_factory,
+                 **(_extra_cfg or {})},
+            )
+            self._machines = getattr(self, "_machines", {})
+            self._machines[uid] = machine
+            log = Log(
+                uid,
+                os.path.join(self.dir, "data", uid),
+                self.tables,
+                self.wal,
+                min_snapshot_interval=self.config.min_snapshot_interval,
+                min_checkpoint_interval=self.config.min_checkpoint_interval,
+                # major compaction passes for one server run in order
+                # on its bg queue (never concurrently with each other)
+                bg_submit=(lambda fn, _uid=uid: self.submit_bg(
+                    fx.BgWork(fn, None), key=_uid)),
+                segment_index_mode=self.config.segment_index_mode,
+                sync_pool=self.sync_pool,
+            )
+            extra = _extra_cfg or {}
+            cfg = ServerConfig(
+                server_id=sid,
+                uid=uid,
+                cluster_name=cluster_name,
+                machine=machine,
+                initial_members=tuple(initial_members),
+                max_pipeline_count=extra.get(
+                    "max_pipeline_count", self.config.default_max_pipeline_count
+                ),
+                max_aer_batch_size=extra.get(
+                    "max_aer_batch_size",
+                    self.config.default_max_append_entries_rpc_batch_size,
+                ),
+                max_command_backlog=extra.get(
+                    "max_command_backlog",
+                    self.config.default_max_command_backlog,
+                ),
+                machine_config=machine_config,
+                machine_upgrade_strategy=extra.get(
+                    "machine_upgrade_strategy",
+                    self.config.machine_upgrade_strategy,
+                ),
+                # check-quorum default: generous vs both the election
+                # timeout (a connected follower's ack cadence) and the
+                # tick (our own evaluation cadence), so only a genuinely
+                # silent quorum — the one-way-partition stale-leader
+                # shape — trips a step-down
+                check_quorum_window_s=extra.get(
+                    "check_quorum_window_s",
+                    max(6 * self.election_timeout_s,
+                        10 * self.tick_interval_s),
+                ),
+                # clock-bound leader lease (docs/INTERNALS.md §20):
+                # default off; the follower promise window is the
+                # node's election timeout BASE (timers randomize
+                # upward only), and the core shares the node clock so
+                # the sim/test planes can skew every lease comparison
+                clock=self.clock,
+                election_timeout_s=self.election_timeout_s,
+                lease=extra.get("lease", False),
+                lease_safety_factor=extra.get("lease_safety_factor", 0.8),
+                lease_drift_epsilon_s=extra.get(
+                    "lease_drift_epsilon_s", 0.002
+                ),
+                # storage-pressure plane (docs/INTERNALS.md §21): every
+                # server on this node shares the node's pressure gate
+                pressure=self.pressure,
+                snapshot_credit_window=self.config.snapshot_credit_window,
+            )
+            server = Server(cfg, log, self.meta)
+            server.recover()
+            proc = ServerProc(self, server)
+            self.procs[name] = proc
+            return sid
+
+    def restart_server(
+        self, name: str, overrides: Optional[dict] = None, orderly: bool = True
+    ) -> ServerId:
+        """Restart from persisted config; ``overrides`` may change only
+        MUTABLE_CONFIG_KEYS (reference: restart with mutable keys,
+        src/ra_server_sup_sup.erl:12-21)."""
+        uid = self.directory.uid_of(name)
+        if uid is None:
+            raise RuntimeError(f"unknown server {name!r}")
+        rec = self.meta.fetch(uid, "__server_config__")
+        if rec is None:
+            raise RuntimeError(f"no persisted config for {name!r}")
+        if overrides:
+            bad = set(overrides) - self.MUTABLE_CONFIG_KEYS
+            if bad:
+                raise ValueError(f"immutable config keys on restart: {sorted(bad)}")
+            rec = {**rec, **overrides}
+            self.meta.store_sync(uid, "__server_config__", rec)
+        machine = getattr(self, "_machines", {}).get(uid)
+        if overrides and "machine_config" in overrides:
+            # a changed machine_config only takes effect through the
+            # factory; the cached machine instance holds the old config
+            if rec.get("machine_factory") is None:
+                raise ValueError(
+                    "machine_config override requires a machine_factory"
+                )
+            machine = None
+        self.stop_server(name, orderly=orderly)
+        return self.start_server(
+            name, rec["cluster"], machine, rec["members"], uid=uid,
+            machine_config=rec.get("machine_config"),
+            machine_factory=rec.get("machine_factory"),
+            _extra_cfg={
+                k: rec[k] for k in self._PERSISTED_EXTRA_KEYS if k in rec
+            },
+        )
+
+    def stop_server(self, name: str, orderly: bool = True) -> None:
+        with self._lock:
+            proc = self.procs.pop(name, None)
+        if proc is not None:
+            self._health.release(name)  # restart re-learns from scratch
+            proc.kill()
+            bg = self._bg_actors.pop(proc.server.cfg.uid, None)
+            if bg is not None:
+                bg.kill()
+            if orderly:
+                # capture AFTER the actor stopped: last_applied and
+                # machine_state must be a coherent pair (a live actor
+                # could apply between the two reads)
+                self._write_recovery_checkpoint(proc)
+            proc.server.log.close()
+            self.ra_state.pop(proc.server.cfg.uid, None)
+            # leader-process monitoring: tell every node this proc died
+            # (the reference's erlang monitors on the leader,
+            # follower_leader_change src/ra_server_proc.erl:1958)
+            sid = proc.server.id
+            reg = getattr(self.transport, "nodes", None)
+            others = list(reg.nodes.values()) if reg is not None else [self]
+            for other in others:
+                try:
+                    other.on_proc_down(sid)
+                except Exception:  # noqa: BLE001
+                    pass
+            # over TCP, announce to remote peers explicitly (the wire
+            # stand-in for remote process monitors)
+            broadcast = getattr(self.transport, "broadcast_proc_down", None)
+            if broadcast is not None:
+                broadcast(sid)
+
+    def delete_server(self, name: str) -> None:
+        from ra_tpu_torch import leaderboard
+
+        uid = self.directory.uid_of(name)
+        self.stop_server(name)
+        # deletion (unlike stop/restart) removes the member for good:
+        # the leaderboard must not keep routing clients at the ghost
+        leaderboard.forget_member((name, self.name))
+        if uid:
+            self.directory.unregister(uid)
+            self.meta.delete(uid)
+            self.tables.delete_mem_table(uid)
+            self.tables.delete_snapshot_state(uid)
+            shutil.rmtree(os.path.join(self.dir, "data", uid), ignore_errors=True)
+
+    def _handle_mgmt(self, op: str, kw: dict):
+        """Remote management plane (reference: start_server_rpc /
+        restart_server_rpc / delete_server_rpc over rpc:call,
+        src/ra_server_sup_sup.erl:33-50). Remote starts must name a
+        machine_factory — machine objects do not travel."""
+        if op == "start_server":
+            return self.start_server(
+                kw["name"], kw["cluster_name"], None,
+                tuple(tuple(m) for m in kw["members"]),
+                machine_config=kw.get("machine_config"),
+                machine_factory=kw["machine_factory"],
+            )
+        if op == "restart_server":
+            return self.restart_server(kw["name"], overrides=kw.get("overrides"))
+        if op == "stop_server":
+            return self.stop_server(kw["name"])
+        if op == "delete_server":
+            return self.delete_server(kw["name"])
+        if op == "trigger_election":
+            self.deliver((kw["name"], self.name), ElectionTimeout(), None)
+            return None
+        if op == "overview":
+            return self.overview()
+        raise ValueError(f"unknown management op {op!r}")
+
+    def _pre_init(self) -> None:
+        """Register snapshot floors for every registered server BEFORE
+        WAL recovery (reference: ra_log_pre_init.erl:31-45)."""
+        from ra_tpu_torch.log.snapshot import SnapshotStore
+        from ra_tpu_torch.utils.seq import Seq
+
+        for uid, _name, _cluster in self.directory.registered():
+            d = os.path.join(self.dir, "data", uid)
+            if not os.path.isdir(d):
+                continue
+            try:
+                meta = SnapshotStore(d).current()
+            except Exception:  # noqa: BLE001 — unreadable: no floor
+                continue
+            if meta is not None:
+                self.tables.set_snapshot_state(
+                    uid, meta.index, Seq.from_list(meta.live_indexes)
+                )
+
+    def _note_infra_restart(self) -> bool:
+        """Supervision intensity accounting (the OTP supervisor
+        intensity/period analog): stamp one restart episode; when more
+        than ``infra_restart_intensity`` land inside
+        ``infra_restart_window_s``, mark the node's storage infra DOWN
+        and tell the caller to throttle — a disk failing every few
+        seconds is not healing, and unthrottled restart churn would
+        just burn I/O while servers flap between wal_down/wal_up.
+        Healing is throttled to one attempt per window (never refused
+        outright: a disk that recovers minutes later must still heal
+        the node), and ``infra_down`` clears on the next success."""
+        import time as _t
+
+        now = _t.monotonic()
+        dq = self._infra_restarts
+        dq.append(now)
+        while dq and now - dq[0] > self.config.infra_restart_window_s:
+            dq.popleft()
+        if len(dq) > self.config.infra_restart_intensity:
+            dq.pop()  # a throttled attempt does not count as an episode
+            if not self.infra_down:
+                self.infra_down = True
+                logger.error(
+                    "supervision: >%d log-infra restarts within %.1fs on %s "
+                    "— marking storage infra DOWN (healing throttled to one "
+                    "attempt per window; recover_infra() forces one now)",
+                    self.config.infra_restart_intensity,
+                    self.config.infra_restart_window_s, self.name,
+                )
+            return False
+        return True
+
+    def recover_infra(self) -> None:
+        """Operator hook: clear the intensity window and run one healing
+        cycle immediately (fresh WAL file, wal_up resend) — the 'disk
+        replaced, bring the node back now' path."""
+        self._infra_restarts.clear()
+        self.infra_down = False
+        if not self.sw.thread_alive():
+            self.sw.revive_thread()
+        self._on_wal_failure(RuntimeError("operator recover_infra"))
+
+    def _on_wal_failure(self, exc: BaseException) -> None:
+        """The shared WAL failed (I/O error or dead writer thread): put
+        every server into await_condition, then restart the WAL on a
+        fresh file with backoff (the supervision analog; on success
+        servers get wal_up and resend their unwritten tails).
+
+        Space-class failures (ENOSPC/EDQUOT — docs/INTERNALS.md §21)
+        take the storage_degraded branch instead: same wal_down fan-out
+        (entries park in memtables, unacked), but admission flips to
+        typed RA_NOSPACE rejects, emergency reclamation runs, and a
+        probe-write loop — NOT the supervision intensity budget —
+        brings the node back when space returns. Raft control traffic
+        (heartbeats, elections, lease reads) needs no new disk and
+        keeps running throughout.
+        """
+        # NO dedup guard here: every failure episode must get a healer
+        # (Wal._fail one-shots per episode; the supervisor only fires on
+        # a dead thread while not failed). A duplicate cycle costs a
+        # redundant wal_down/wal_up round, which servers tolerate; a
+        # DROPPED episode would wedge the node forever.
+        from ra_tpu_torch.pressure import CLASS_SPACE, classify_storage_error
+
+        for proc in list(self.procs.values()):
+            proc.enqueue(LogEvent(("wal_down",)))
+        if classify_storage_error(exc) == CLASS_SPACE and self.wal.degraded:
+            self._enter_storage_degraded(exc)
+            return
+        throttled = not self._note_infra_restart()
+
+        def restart():
+            import time as _t
+
+            if throttled:
+                # intensity exceeded: cool down for one window before
+                # the next attempt (the wal stays failed meanwhile, so
+                # no further episodes stack behind this one)
+                _t.sleep(self.config.infra_restart_window_s)
+            delay = 0.05
+            while self.running:
+                if self.wal.reopen():
+                    self.infra_down = False
+                    for proc in list(self.procs.values()):
+                        proc.enqueue(LogEvent(("wal_up",)))
+                    return
+                # keep retrying forever with capped backoff: a disk that
+                # recovers minutes later must still heal the node
+                _t.sleep(delay)
+                delay = min(delay * 2, 5.0)
+
+        threading.Thread(
+            target=restart, name=f"ra-wal-restart-{self.name}", daemon=True
+        ).start()
+
+    def _enter_storage_degraded(self, exc: BaseException) -> None:
+        """Space-class WAL failure: degrade instead of restart. The
+        degraded episode deliberately does NOT consume the supervision
+        intensity budget — running out of disk repeatedly is expected
+        under pressure and is not the restart-churn shape the intensity
+        latch protects against."""
+        if not self.pressure.enter_degraded(
+            detail=f"{type(exc).__name__}: {exc}"
+        ):
+            return  # an earlier space episode already owns the probe loop
+        # reclaim first: the probe only succeeds once bytes come back
+        self._trigger_reclaim("storage_degraded")
+
+        def probe():
+            import time as _t
+
+            delay = 0.05
+            while self.running:
+                self.pressure.counter.incr("disk_probe_attempts")
+                if self.wal.reopen():
+                    # probe write succeeded (fresh file + magic bytes):
+                    # space is back. Wake parked RA_NOSPACE clients,
+                    # then resend the memtable tails.
+                    self.pressure.exit_degraded()
+                    for proc in list(self.procs.values()):
+                        proc.enqueue(LogEvent(("wal_up",)))
+                    return
+                _t.sleep(delay)
+                delay = min(delay * 2, 5.0)
+
+        threading.Thread(
+            target=probe, name=f"ra-wal-probe-{self.name}", daemon=True
+        ).start()
+
+    def _trigger_reclaim(self, why: str) -> None:
+        """Kick one emergency reclamation pass (docs/INTERNALS.md §21):
+        every server force-snapshots at its applied index (bypassing
+        min_snapshot_interval), advances its release cursor machinery,
+        and major-compacts — on its own actor thread, through the
+        existing log seams. Freed bytes are accounted on the next
+        watermark check against the baseline captured here."""
+        from ra_tpu_torch import obs
+        from ra_tpu_torch.pressure import dir_bytes
+
+        c = self.pressure.counter
+        c.incr("disk_reclaims")
+        if self._reclaim_baseline is None:
+            self._reclaim_baseline = dir_bytes(self.dir)
+        obs.flight_recorder().record(
+            "disk_reclaim", node=self.name, detail=why)
+        for proc in list(self.procs.values()):
+            proc.enqueue(("reclaim_storage",))
+
+    def _tick_storage(self, now: float) -> None:
+        """Watermark + brownout controller tick (detector thread)."""
+        if now - self._last_disk_check < self.config.disk_check_interval_s:
+            return
+        self._last_disk_check = now
+        from ra_tpu_torch import obs
+        from ra_tpu_torch.pressure import dir_bytes
+
+        c = self.pressure.counter
+        rec = obs.flight_recorder()
+        used = dir_bytes(self.dir)
+        c.put("disk_used_bytes", used)
+        if self._reclaim_baseline is not None:
+            if used < self._reclaim_baseline:
+                c.incr("disk_reclaimed_bytes", self._reclaim_baseline - used)
+            self._reclaim_baseline = None
+        for ev in self._watermark.tick(used):
+            if ev == "soft_enter":
+                c.incr("disk_soft_trips")
+            elif ev == "hard_enter":
+                c.incr("disk_hard_trips")
+                self.pressure.set_hard(True)
+            elif ev == "hard_exit":
+                self.pressure.set_hard(False)
+            rec.record("disk_pressure", node=self.name,
+                       detail=f"{ev} used={used}")
+        c.put("disk_pressure_state", self._watermark.state)
+        self._health.note_disk_pressure(self._watermark.state)
+        if self._watermark.soft:
+            # reclaim every check while over the soft line: each pass
+            # may free more (new applied entries -> higher snapshot)
+            self._trigger_reclaim("soft_watermark")
+        # slow-disk brownout: difference the WAL's cumulative fsync
+        # counters into a mean-latency sample for the detector
+        wc = self.wal.counter
+        evs = self._brownout.sample(
+            wc.get("fsyncs"), wc.get("fsync_time_us"))
+        c.put("brownout_fsync_us", int(self._brownout.smoothed_us))
+        for ev in evs:
+            if ev == "enter":
+                self.pressure.brownout = True
+                c.incr("brownout_entered")
+                c.put("brownout_active", 1)
+                rec.record(
+                    "brownout", node=self.name,
+                    detail=f"enter fsync_us={int(self._brownout.smoothed_us)}",
+                )
+            else:
+                self.pressure.brownout = False
+                c.incr("brownout_exited")
+                c.put("brownout_active", 0)
+                rec.record("brownout", node=self.name, detail="exit")
+        if self.pressure.brownout:
+            # attempted every tick while the episode lasts: the first
+            # transfer routinely loses to a not-yet-caught-up target
+            # (transfer_leadership demands a confirmed match_index)
+            self._shed_leaderships()
+
+    def _shed_leaderships(self) -> None:
+        """Browned out: hand every led group to a live peer. The
+        transfer blocks on a future, so it runs off the detector
+        thread; failures are fine — the next brownout tick retries
+        while the episode lasts."""
+        from ra_tpu_torch.server import LEADER
+
+        if self._shed_busy:
+            return
+        for name, proc in list(self.procs.items()):
+            srv = proc.server
+            if srv.role != LEADER:
+                continue
+            targets = [
+                m for m in srv.members()
+                if m != srv.id and self.transport.proc_alive(m)
+            ]
+            if not targets:
+                continue
+            self.pressure.counter.incr("brownout_sheds")
+
+            self._shed_busy = True
+
+            def xfer(sid=srv.id, to=targets[0]):
+                from ra_tpu_torch import api
+
+                try:
+                    api.transfer_leadership(sid, to, timeout=5.0)
+                except Exception:  # noqa: BLE001
+                    pass
+                finally:
+                    self._shed_busy = False
+
+            threading.Thread(
+                target=xfer, name=f"ra-brownout-shed-{name}", daemon=True
+            ).start()
+
+    def recover_registered(self) -> None:
+        """server_recovery_strategy=registered: restart every registered
+        server — machines come from the in-memory table or, on a cold
+        boot, from the persisted machine factory."""
+        for uid, name, cluster in self.directory.registered():
+            machine = getattr(self, "_machines", {}).get(uid)
+            rec = self.meta.fetch(uid, "__server_config__")
+            if rec is None or name in self.procs:
+                continue
+            if machine is None and rec.get("machine_factory") is None:
+                continue  # not reconstructable: skip (legacy servers)
+            try:
+                self.start_server(
+                    name, cluster, machine, rec["members"], uid=uid,
+                    machine_config=rec.get("machine_config"),
+                    machine_factory=rec.get("machine_factory"),
+                    _extra_cfg={
+                        k: rec[k]
+                        for k in self._PERSISTED_EXTRA_KEYS if k in rec
+                    },
+                )
+            except Exception:  # noqa: BLE001 — one bad server must not
+                # block recovery of the rest (or the whole node boot)
+                logger.exception("recovery of server %r skipped", name)
+
+    def _write_recovery_checkpoint(self, proc) -> None:
+        """Orderly-shutdown capture so the next boot can skip replay
+        (reference: maybe_write_recovery_checkpoint,
+        src/ra_server.erl:2708-2762)."""
+        from ra_tpu_torch.protocol import SnapshotMeta
+
+        srv = proc.server
+        try:
+            # the tick-driven last_applied persistence is async; make the
+            # final watermark durable so boot replay targets it even if
+            # the checkpoint below is unusable
+            self.meta.store_sync(srv.cfg.uid, "last_applied", srv.last_applied)
+            idx = srv.last_applied
+            snap = srv.log.snapshot_index_term()
+            if idx <= (snap[0] if snap else 0):
+                return  # snapshot already covers the applied prefix
+            term = srv.log.fetch_term(idx)
+            if term is None:
+                return
+            mac = srv.machine.which_module(srv.effective_machine_version)
+            srv.log.write_recovery_checkpoint(
+                SnapshotMeta(
+                    index=idx, term=term, cluster=tuple(srv.members()),
+                    machine_version=srv.effective_machine_version,
+                    live_indexes=tuple(mac.live_indexes(srv.machine_state)),
+                ),
+                srv.machine_state,
+            )
+        except Exception:  # noqa: BLE001 — best-effort: boot replays
+            pass
+
+    def _on_actor_crash(self, actor) -> None:
+        """Supervision: restart a crashed server proc (rest_for_one
+        equivalent for the proc+worker pair)."""
+        name = actor.name
+        try:
+            # crashed state is suspect: no recovery checkpoint
+            self.restart_server(name, orderly=False)
+        except Exception:  # noqa: BLE001
+            logger.exception("supervision: restart of %r failed", name)
+
+    # ------------------------------------------------------------------
+    # message delivery
+
+    def deliver(self, to: ServerId, msg: Any, from_sid: Optional[ServerId]) -> bool:
+        proc = self.procs.get(to[0])
+        if proc is None:
+            return False
+        proc.enqueue(FromPeer(from_sid, msg) if from_sid is not None else msg)
+        return True
+
+    def _log_notify(self, uid: str, evt: Any) -> None:
+        """Route WAL/segment-writer events to the owning proc."""
+        name = self.directory.name_of(uid)
+        if name is None:
+            return
+        proc = self.procs.get(name)
+        if proc is not None:
+            proc.enqueue(LogEvent(evt))
+
+    def _log_notify_many(self, items: List[Tuple[str, Any]]) -> None:
+        """Bulk WAL written-event fan-out: ONE call per fsync batch
+        (the Wal emits at most one written event per writer per batch),
+        enqueued to the server actors in a single pass on the WAL
+        writer thread — durable acks leave without re-entering any
+        shared queue (docs/INTERNALS.md §16)."""
+        name_of = self.directory.name_of
+        procs = self.procs
+        for uid, evt in items:
+            name = name_of(uid)
+            if name is None:
+                continue
+            proc = procs.get(name)
+            if proc is not None:
+                proc.enqueue(LogEvent(evt))
+
+    # ------------------------------------------------------------------
+    # client plumbing
+
+    def register_client_sink(self, who: Any, cb: Callable[[ServerId, list], None]) -> None:
+        self._client_sinks[who] = cb
+
+    def notify_client(self, who: Any, from_sid: ServerId, correlations: list) -> None:
+        cb = self._client_sinks.get(who)
+        if cb is not None:
+            try:
+                cb(from_sid, correlations)
+            except Exception:  # noqa: BLE001
+                pass
+
+    def send_msg(self, to: Any, msg: Any, options) -> None:
+        cb = self._client_sinks.get(to)
+        if cb is not None:
+            try:
+                cb(None, [msg])
+            except Exception:  # noqa: BLE001
+                pass
+
+    def submit_bg(self, eff: fx.BgWork, key: Optional[str] = None) -> None:
+        """Run background work. With ``key`` (a server uid), jobs for
+        the same key execute STRICTLY IN ORDER on a per-key queue while
+        different keys proceed concurrently — the reference's per-server
+        ra_worker contract (src/ra_worker.erl:12-26). Today the keyed
+        producers are major-compaction passes (so one server's majors
+        never overlap each other) and machine BgWork effects; snapshot
+        writes run inline on the server thread and serialize against
+        compaction through the SegmentSet lock. Keyless jobs use the
+        shared pool."""
+        if key is None:
+            def run():
+                try:
+                    eff.fn()
+                except BaseException as e:  # noqa: BLE001
+                    if eff.err_fn is not None:
+                        eff.err_fn(e)
+
+            self.bg.submit(run)
+            return
+        actor = self._bg_actors.get(key)
+        if actor is None:
+            def run_batch(batch):
+                for fn, err_fn in batch:
+                    try:
+                        fn()
+                    except BaseException as e:  # noqa: BLE001
+                        if err_fn is not None:
+                            try:
+                                err_fn(e)
+                            except Exception:  # noqa: BLE001
+                                logger.exception("bg err_fn for %r raised", key)
+                        else:
+                            logger.exception("bg job for %r failed", key)
+
+            actor = self.bg_scheduler.actor(f"__bg__{key}", run_batch)
+            self._bg_actors[key] = actor
+        actor.send((eff.fn, eff.err_fn))
+
+    # ------------------------------------------------------------------
+    # failure detection (reference: aten poll-based node suspicion)
+
+    def _supervise_log_infra(self) -> None:
+        """one_for_all-style supervision of the shared log infra
+        (reference: ra_system_sup / ra_log_sup restart the WAL and
+        segment writer as a unit, src/ra_system_sup.erl:26-40,
+        src/ra_log_sup.erl:20-63). Dependency order: the segment writer
+        is revived FIRST — the WAL hands rollover flushes to it — then a
+        dead WAL thread goes through the same wal_down -> reopen ->
+        wal_up healing cycle as an I/O failure, with no operator
+        action."""
+        if not self.sw.thread_alive():
+            # throttled (intensity exceeded): retry on a later poll,
+            # once the oldest episode decays out of the window
+            if self._note_infra_restart():
+                logger.error(
+                    "supervision: segment-writer thread died; reviving")
+                self.sw.revive_thread()
+                if not self.wal.failed and self.wal.thread_alive():
+                    # the revive succeeded and the WAL is healthy: the
+                    # sw-only throttle episode is over (the WAL restart
+                    # path clears the flag on its own success)
+                    self.infra_down = False
+        if not self.wal.thread_alive() and not self.wal.failed:
+            logger.error("supervision: wal thread died; restarting log infra")
+            self._on_wal_failure(RuntimeError("wal writer thread died"))
+
+    def _health_sweep(self, now: float) -> None:
+        """Actor-backend health scan (docs/INTERNALS.md §14): one host
+        sweep over the live procs' scalar mirrors (bounded by PROC
+        count, not group count — the thousands-of-groups path is the
+        coordinator's vectorized fetch), folded into the shared
+        vectorized scanner so both backends classify identically."""
+        import numpy as np
+
+        from ra_tpu_torch import health as ra_health
+
+        rows = []
+        for name, proc in list(self.procs.items()):
+            try:
+                rows.append((name,) + proc.server.health_row())
+            except Exception:  # noqa: BLE001 — raced a restart: next tick
+                continue
+        if not rows:
+            return
+        sc = self._health
+        sc.counters.incr("health_fetches")  # one sweep == one fetch operation
+        slots = np.fromiter(
+            (sc.ensure(r[0], r[1]) for r in rows), np.int64, len(rows)
+        )
+        col = lambda i, dt: np.fromiter(  # noqa: E731
+            (r[i] for r in rows), dt, len(rows)
+        )
+        leader_key = np.fromiter(
+            (ra_health.NO_LEADER_KEY if r[8] is None else r[8]
+             for r in rows),
+            np.int64, len(rows),
+        )
+        sc.scan(
+            now, slots, col(2, np.int8), col(3, np.int64), col(4, np.int64),
+            col(5, np.int64), col(6, np.int64), col(7, np.int64), leader_key,
+        )
+
+    def _detect_loop(self) -> None:
+        _t = self.clock
+
+        last_health = 0.0
+        while self.running:
+            try:
+                self._supervise_log_infra()
+                _now_h = _t.monotonic()
+                if _now_h - last_health >= self.tick_interval_s:
+                    last_health = _now_h
+                    self._health_sweep(_now_h)
+                    self.detector.publish()
+                self._tick_storage(_now_h)
+                # include previously-seen names: a stopped node
+                # unregisters, and its disappearance must read as death
+                known = set(self.transport.known_nodes()) | set(self._node_status)
+                for other in known:
+                    if other == self.name:
+                        continue
+                    # over TCP, node_alive consults the phi-accrual
+                    # detector fed by pong arrivals (adaptive window);
+                    # in-proc, registry membership is ground truth
+                    alive = self.transport.node_alive(other)
+                    prev = self._node_status.get(other)
+                    if prev is None:
+                        self._node_status[other] = alive
+                        continue
+                    if prev != alive:
+                        self._node_status[other] = alive
+                        status = "up" if alive else "down"
+                        for proc in list(self.procs.values()):
+                            proc.on_node_event(other, status)
+                # suspicion sweep: transitions can be missed (a leader
+                # that dies before its node was ever recorded alive).
+                # Three leaderless shapes arm an election timer (the
+                # same shapes the batch coordinator retries — a live
+                # leader's tick sends an empty commit-sync AER to every
+                # peer, so "no contact for several ticks" is a reliable
+                # leaderless signal here too):
+                #   - known leader on a DEAD node, stale contact;
+                #   - known leader alive but SILENT well past the tick
+                #     cadence (a deposed leader that never re-won);
+                #   - NO known leader after a term bump (a failed
+                #     election left everyone leaderless). term > 0 keeps
+                #     fresh boots quiet until explicitly triggered.
+                from ra_tpu_torch.server import AWAIT_CONDITION, FOLLOWER
+
+                now = _t.monotonic()
+                contact_window = max(
+                    5 * self.tick_interval_s, 6 * self.election_timeout_s
+                )
+                for proc in list(self.procs.values()):
+                    srv = proc.server
+                    if (
+                        srv.role not in (FOLLOWER, AWAIT_CONDITION)
+                        or not srv.is_voter_self()
+                        or proc._election_ref is not None
+                    ):
+                        continue
+                    leader = srv.leader_id
+                    stale = now - proc.last_leader_contact
+                    if leader is not None and leader != srv.id:
+                        if (
+                            not self.transport.node_alive(leader[1])
+                            and stale > 2 * self.election_timeout_s
+                        ) or stale > contact_window:
+                            proc.arm_election_timer()
+                    elif srv.current_term > 0 and stale > contact_window:
+                        proc.arm_election_timer()
+            except Exception:  # noqa: BLE001
+                pass
+            _t.sleep(self._detector_poll_s)
+
+    def on_proc_down(self, sid: ServerId) -> None:
+        """A proc (possibly remote) died: followers whose leader it was
+        arm election timers; machine monitors fire DownEvents."""
+        from ra_tpu_torch.server import AWAIT_CONDITION, FOLLOWER
+
+        for proc in list(self.procs.values()):
+            srv = proc.server
+            if (
+                srv.leader_id == sid
+                and srv.role in (FOLLOWER, AWAIT_CONDITION)
+                and srv.is_voter_self()
+            ):
+                proc.arm_election_timer()
+        for watcher, component in self.monitors.watchers("process", sid):
+            proc = self.procs.get(watcher[0])
+            if proc is not None:
+                proc.on_monitor_down(sid, "noproc", component)
+
+    # ------------------------------------------------------------------
+
+    def overview(self) -> dict:
+        return {
+            "node": self.name,
+            "servers": {
+                uid: {"name": n, "role": r, "leader": l}
+                for uid, (n, r, l) in self.ra_state.items()
+            },
+            "wal": self.wal.overview(),
+            "infra_down": self.infra_down,
+            "infra_restarts_in_window": len(self._infra_restarts),
+            "storage_degraded": self.pressure.degraded,
+            "disk_pressure_state": self._watermark.state,
+            "brownout": self.pressure.brownout,
+        }
+
+    def stop(self) -> None:
+        self.running = False
+        from ra_tpu_torch import health as ra_health
+
+        ra_health.unregister(self.name)
+        self.pressure.delete()
+        # the detect loop publishes phi gauges: join it BEFORE closing
+        # the detector, or an in-flight publish() re-registers the
+        # gauge vectors close() just deleted (registry ghost)
+        try:
+            self._detector.join(timeout=2 * self._detector_poll_s + 1)
+        except RuntimeError:
+            pass  # stop() issued from the detector thread itself
+        self.detector.close()
+        for name in list(self.procs):
+            self.stop_server(name)
+        self.wal.close()
+        self.sw.close()
+        self.sync_pool.close()
+        self.meta.close()
+        self.scheduler.close()
+        self.bg_scheduler.close()
+        self.timers.close()
+        self.bg.shutdown(wait=False)
+        closer = getattr(self.transport, "close", None)
+        if closer is not None:
+            closer()
+        self._registry.unregister(self.name)

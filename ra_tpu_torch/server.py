@@ -1,0 +1,2646 @@
+"""The pure consensus core — one Raft server's transition function.
+
+This is the framework's equivalent of the reference's ``ra_server``
+(reference: ``src/ra_server.erl:17-68`` — one ``handle_<role>`` per role,
+each returning ``(NextRole, State', Effects)``). The core performs **no
+I/O and no messaging**: it reads/writes its log only through the
+``LogApi`` facade, persists term/vote through ``MetaApi``, and returns
+``Effect`` values for the runtime to realise. That makes it:
+
+- exhaustively testable message-by-message (tests/test_server_*.py),
+- the *oracle* for the vectorized TPU kernels in ``ra_tpu_torch.ops.consensus``
+  (both implement the decision math in ``ra_tpu_torch.ops.decisions``).
+
+Roles: follower, pre_vote, candidate, leader, receive_snapshot,
+await_condition (reference: src/ra_server_proc.erl:20-32).
+
+Implementation style note: unlike the Erlang original this core mutates a
+``Server`` object in place — the purity that matters (no I/O, no time, no
+randomness, effects-as-data) is kept, while Python object churn is not,
+because the batch coordinator reads its state out as arrays anyway.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+import zlib
+from typing import Any, Callable, Dict, List, Optional, Sequence, Set, Tuple
+
+from ra_tpu_torch import counters as ra_counters
+from ra_tpu_torch.effects import (
+    Aux,
+    BgWork,
+    Checkpoint,
+    Demonitor,
+    Effect,
+    EffectList,
+    LogRead,
+    ModCall,
+    Monitor,
+    NextEvent,
+    Notify,
+    RecordLeader,
+    ReleaseCursor,
+    Reply,
+    SendMsg,
+    SendRpc,
+    SendSnapshot,
+    SendVoteRequests,
+    StartSnapshotRetryTimer,
+    StateEnter,
+    StopServer as StopEffect,
+    Timer,
+    TryAppend,
+)
+from ra_tpu_torch.log.api import LogApi
+from ra_tpu_torch.log.meta import MetaApi
+from ra_tpu_torch.machine import Machine, normalize_apply_result
+from ra_tpu_torch.ops import decisions as dec
+from ra_tpu_torch.protocol import (
+    AppendEntriesReply,
+    AppendEntriesRpc,
+    CHUNK_INIT,
+    CHUNK_LAST,
+    CHUNK_NEXT,
+    CHUNK_PRE,
+    Command,
+    DownEvent,
+    ElectionTimeout,
+    Entry,
+    FromPeer,
+    HeartbeatReply,
+    HeartbeatRpc,
+    InfoReply,
+    InfoRpc,
+    InstallSnapshotAck,
+    InstallSnapshotResult,
+    InstallSnapshotRpc,
+    LogEvent,
+    NOOP,
+    REJECT_NOSPACE,
+    REJECT_OVERLOADED,
+    NodeEvent,
+    PreVoteResult,
+    PreVoteRpc,
+    RA_CLUSTER_CHANGE,
+    RA_JOIN,
+    RA_LEAVE,
+    RequestVoteResult,
+    RequestVoteRpc,
+    ServerId,
+    SnapshotMeta,
+    Tick,
+    USR,
+)
+
+PROTO_VERSION = 1
+
+FOLLOWER = "follower"
+PRE_VOTE = "pre_vote"
+CANDIDATE = "candidate"
+LEADER = "leader"
+RECEIVE_SNAPSHOT = "receive_snapshot"
+AWAIT_CONDITION = "await_condition"
+
+
+def status_kind(status: Any) -> str:
+    """Peer status discriminator: plain statuses are strings; the
+    snapshot-transfer statuses carry an attempt count as
+    ("sending_snapshot", n) / ("snapshot_backoff", n) (reference peer
+    status values, src/ra_server.erl:73-112)."""
+    return status[0] if isinstance(status, tuple) else status
+
+
+@dataclasses.dataclass
+class PeerState:
+    next_index: int = 1
+    match_index: int = 0
+    commit_index_sent: int = 0
+    query_index: int = 0
+    # "normal" | "suspended" | "disconnected"
+    # | ("sending_snapshot", attempts) | ("snapshot_backoff", attempts)
+    status: Any = "normal"
+    # "voter" | ("nonvoter", target_index) — nonvoters replicate but do
+    # not count for quorum/elections until promoted (reference:
+    # maybe_promote_peer src/ra_server.erl:3977-3995)
+    voter_status: Any = "voter"
+    # highest machine version the peer supports (None = unknown; learned
+    # from info/pre-vote rpcs) — gates upgrade strategies
+    machine_version: Optional[int] = None
+
+    def is_voter(self) -> bool:
+        return self.voter_status == "voter"
+
+
+# re-exported for existing importers; the class lives with the wire
+# protocol records now (sent leader->target over transport)
+from ra_tpu_torch.protocol import TimeoutNow  # noqa: E402,F401
+
+
+@dataclasses.dataclass
+class ConditionTimeout:
+    """Fired by the runtime when the await_condition hold expires —
+    distinct from ElectionTimeout, which starts a pre-vote even while a
+    condition holds (reference: await_condition_timeout vs
+    election_timeout, src/ra_server.erl:1922-1945).
+
+    ``generation`` guards against stale delivery: a timeout enqueued for
+    hold A must not expire a newly-entered hold B (None = wildcard, for
+    message-level tests)."""
+
+    generation: Optional[int] = None
+
+
+@dataclasses.dataclass
+class Condition:
+    """An await_condition hold (reference condition map,
+    src/ra_server.erl:90-93): ``predicate(server, msg)`` decides when a
+    message releases the hold; the server then transitions to
+    ``transition_to`` and re-injects the message. If the hold expires
+    first (ConditionTimeout), the server transitions to
+    ``timeout_transition_to`` and issues ``timeout_effects`` (e.g. the
+    catch-up condition repeats its failure reply)."""
+
+    predicate: Callable[["Server", Any], bool]
+    timeout_effects: Tuple[Effect, ...] = ()
+    transition_to: str = FOLLOWER
+    timeout_transition_to: str = FOLLOWER
+    # None -> the runtime's default await_condition timeout
+    timeout_duration_ms: Optional[int] = None
+
+
+def _follower_catchup_cond(reason: str) -> Callable[["Server", Any], bool]:
+    """Release predicate for the follower catch-up hold (reference:
+    follower_catchup_cond, src/ra_server.erl:2196-2231): a same/higher
+    term AER whose prev now fits releases; a term-mismatch AER releases
+    only when the original hold was for a MISSING entry (the mismatch
+    needs its own rewind); an install-snapshot at/above our next index
+    releases into the snapshot path."""
+
+    def pred(srv: "Server", m: Any) -> bool:
+        if isinstance(m, AppendEntriesRpc) and m.term >= srv.current_term:
+            snap = srv.log.snapshot_index_term()
+            local = srv.log.fetch_term(m.prev_log_index)
+            code = dec.aer_decision(
+                srv.current_term, m.term, m.prev_log_index, m.prev_log_term,
+                -1 if local is None else local, snap[0] if snap else 0,
+            )
+            if code == dec.AER_OK:
+                return True
+            if local is not None and local != m.prev_log_term:
+                return reason == "missing"
+            return False
+        if isinstance(m, InstallSnapshotRpc) and m.term >= srv.current_term:
+            return m.meta.index >= srv.log.next_index()
+        return False
+
+    return pred
+
+
+@dataclasses.dataclass
+class ServerConfig:
+    server_id: ServerId
+    uid: str
+    cluster_name: str
+    machine: Machine
+    initial_members: Tuple[ServerId, ...] = ()
+    max_pipeline_count: int = 4096
+    max_aer_batch_size: int = 128
+    # client admission window: appended-but-unapplied backlog above
+    # which new client commands are rejected ("reject", "overloaded")
+    # or, when ack-free, dropped — bounded queueing instead of silent
+    # unbounded latency (the client analog of max_pipeline_count)
+    max_command_backlog: int = 4096
+    counters_enabled: bool = True
+    # pre_vote on by default; candidates skip straight to request_vote
+    # when False.
+    pre_vote: bool = True
+    # check-quorum window (seconds; 0 disables): a leader that has not
+    # HEARD from a quorum of voters within the window steps down and
+    # answers its pending clients "maybe" instead of reigning uselessly.
+    # This is the one-way-partition guard: a leader whose AppendEntries
+    # still flow OUT keeps resetting follower election timers, so no
+    # follower ever stands — only the leader itself can notice that no
+    # ack ever comes BACK (Raft §6's check-quorum / the reference's
+    # leader contact monitoring). Node construction defaults it from
+    # the node's timing config (runtime/node.py).
+    check_quorum_window_s: float = 0.0
+    machine_config: Optional[Dict[str, Any]] = None
+    # "all" (default): bump the effective machine version only once every
+    # member supports it; "quorum": once a quorum does (reference:
+    # src/ra_server.erl:223-233)
+    machine_upgrade_strategy: str = "all"
+    # injectable clock (ra_tpu_torch/runtime/clock.py): every behavioral time
+    # read (check-quorum windows, peer-contact stamps) goes through it;
+    # None = the real wall clock. The sim plane injects a VirtualClock.
+    clock: Optional[Any] = None
+    # clock-bound leader lease (docs/INTERNALS.md §20). OFF by default:
+    # leader stickiness changes election behavior (a follower with
+    # recent leader contact disregards (pre-)votes), which existing
+    # churn tests trigger at will; kv_harness/bench/sim opt in
+    # explicitly. Requires pre_vote — stickiness on the pre-vote round
+    # is what makes the quorum-intersection safety argument hold for
+    # ordinary (non-forced) elections.
+    lease: bool = False
+    # the follower promise window: minimum leader silence before a
+    # follower will help elect a replacement. Must equal the BASE of
+    # the randomized election timer (runtime/timers.py randomizes
+    # upward only), so the promise is never shorter than the lease
+    # math assumes.
+    election_timeout_s: float = 0.15
+    lease_safety_factor: float = 0.8
+    lease_drift_epsilon_s: float = 0.002
+    # node-scope storage-pressure plane (ra_tpu_torch.pressure.StoragePressure
+    # or None): when blocked() — WAL space-degraded or hard watermark —
+    # client commands reject ("reject", "nospace") through the same
+    # gate-waiter path as overload, and snapshot-chunk acks grant 0
+    # credits so inbound transfers pause (docs/INTERNALS.md §21).
+    pressure: Optional[Any] = None
+    # receiver-paced snapshot chunk credit window granted per ack while
+    # storage is healthy (SystemConfig.snapshot_credit_window)
+    snapshot_credit_window: int = 4
+
+
+class Server:
+    """One Raft group member. See module docstring for the contract."""
+
+    def __init__(self, cfg: ServerConfig, log: LogApi, meta: MetaApi):
+        self.cfg = cfg
+        self.id: ServerId = cfg.server_id
+        self.log = log
+        self.meta = meta
+        from ra_tpu_torch.runtime.clock import WALL
+
+        self._clock = cfg.clock or WALL
+        self.machine = cfg.machine
+        self.role: str = FOLLOWER
+        self.leader_id: Optional[ServerId] = None
+        # max index the current leader has confirmed holding (via its
+        # AERs); deferred written acks are anchored to it
+        self._leader_cover = 0
+
+        self.current_term: int = meta.fetch(cfg.uid, "current_term", 0)
+        self.voted_for: Optional[ServerId] = meta.fetch(cfg.uid, "voted_for", None)
+        self.commit_index: int = 0
+        self.last_applied: int = meta.fetch(cfg.uid, "last_applied", 0)
+        # admission-window release gate (docs/INTERNALS.md §16): a
+        # rejected client parks on a waiter carried in the reject reply
+        # and is woken the moment apply progress frees window room —
+        # the actor-backend mirror of the batch coordinator's _adm_gate
+        # (clients are process-local; the gate never crosses the wire)
+        from ra_tpu_torch.rings import WaitGate
+
+        self._adm_gate = WaitGate()
+
+        # machine versioning (reference: src/ra_server.erl:223-233)
+        self.machine_version: int = self.machine.version()
+        self.effective_machine_version: int = 0
+
+        # cluster membership
+        self.cluster: Dict[ServerId, PeerState] = {}
+        self.cluster_index_term: Tuple[int, int] = (0, 0)
+        self.previous_cluster: Optional[Tuple[int, int, Dict[ServerId, PeerState]]] = None
+        self.cluster_change_permitted: bool = False
+        self.pending_cluster_change: Optional[Tuple[Any, Any]] = None
+
+        # election state
+        self.votes: Set[ServerId] = set()
+        self.pre_votes: Set[ServerId] = set()
+        self.pre_vote_token: int = 0
+        self._token_counter: int = 0
+        # check-quorum bookkeeping: monotonic stamp of the last message
+        # RECEIVED from each peer while we lead (any inbound message is
+        # contact — AER replies, heartbeat replies, snapshot results,
+        # votes); evaluated against cfg.check_quorum_window_s per tick
+        self._peer_contact: Dict[ServerId, float] = {}
+
+        # clock-bound leader lease (§20). All lease state lives on the
+        # core (not the proc shell) so the sim plane, which drives
+        # Server directly, exercises every path.
+        if cfg.lease and not cfg.pre_vote:
+            raise ValueError(
+                "lease requires pre_vote: leader stickiness rides the "
+                "pre-vote round (docs/INTERNALS.md §20)"
+            )
+        from ra_tpu_torch.lease import LeaseConfig, LeaseTracker
+
+        self._lease = LeaseTracker(LeaseConfig(
+            enabled=cfg.lease,
+            election_timeout_s=cfg.election_timeout_s,
+            safety_factor=cfg.lease_safety_factor,
+            drift_epsilon_s=cfg.lease_drift_epsilon_s,
+        ))
+        self._lease_renew_t = 0.0  # last demand-driven renewal round
+        # follower side: monotonic stamp of last contact from a live
+        # leader — the stickiness promise is measured against it
+        self._leader_contact = 0.0
+        # TimeoutNow/force_shrink candidacies send force=True votes that
+        # bypass stickiness (the old leader revoked its lease first)
+        self._forced_candidacy = False
+        # lease-admitted reads waiting for applied >= read_index:
+        # (read_index, from_ref, fn) — drained in _apply_to, answered
+        # "redirect" if leadership is lost first (see _become)
+        self.pending_lease_reads: List[Tuple[int, Any, Callable]] = []
+        # True once commit_index provably includes an entry of the
+        # current term (Raft read-index precondition; set by
+        # _evaluate_quorum's current-term gate)
+        self._term_commit_ok = False
+        # staleness-bounded local reads: newest not-yet-applied
+        # (commit_index, leader wall ts) anchor + the applied freshness
+        # floor (read_staleness_s)
+        self._fresh_anchor: Tuple[int, float] = (0, 0.0)
+        self._fresh_ts = 0.0
+
+        # consistent-query state (leader side)
+        self.query_index: int = 0
+        self.pending_queries: List[Tuple[int, Any, Callable]] = []
+        # idx -> client reply handle for await_consensus commands. Reply
+        # handles are process-ephemeral and never persisted (entries are
+        # stripped of from_ref on durable write), so the leader keeps
+        # them here until the entry applies or leadership is lost.
+        self.pending_replies: Dict[int, Any] = {}
+
+        # receive_snapshot state
+        self._snap_accept: Optional[Dict[str, Any]] = None
+
+        self.condition: Optional[Condition] = None
+        self.condition_generation = 0  # stale-ConditionTimeout guard
+        self._held_from_leader = False  # hold entered from leadership
+        # a release cursor stashed behind unmet conditions:
+        # (index, machine_state, conditions) — re-evaluated on written
+        # events, AER acks, and snapshot-sender exits (reference:
+        # pending_release_cursor, src/ra_server.erl:2455-2514)
+        self.pending_release_cursor: Optional[Tuple[int, Any, Tuple[Any, ...]]] = None
+
+        self.counter = (
+            ra_counters.new((cfg.cluster_name, cfg.server_id)) if cfg.counters_enabled else None
+        )
+        # commit-latency stage histograms (per NODE, shared with any
+        # batch coordinator on it) + flight recorder; one in-flight
+        # sample per server: [idx, t_submit, t_append, t_durable,
+        # t_commit, t_apply] in monotonic ns (obs.COMMIT_STAGES)
+        from ra_tpu_torch import obs as _obs
+
+        self._commit_h = _obs.commit_hists(self.id[1])
+        self._obs_rec = _obs.flight_recorder()
+        self._lat: Optional[list] = None
+
+        # machine state: from snapshot if present, else init
+        snap = log.read_snapshot()
+        if snap is not None:
+            meta_s, mac_state = snap
+            self.machine_state = mac_state
+            self.effective_machine_version = meta_s.machine_version
+            self._set_cluster(
+                {sid: PeerState() for sid in meta_s.cluster}, meta_s.index, meta_s.term
+            )
+            self.commit_index = meta_s.index
+            self.last_applied = max(self.last_applied, meta_s.index)
+        else:
+            self.machine_state = self.machine.init(
+                dict(cfg.machine_config or {}, name=cfg.cluster_name)
+            )
+            members = cfg.initial_members or (cfg.server_id,)
+            self._set_cluster({sid: PeerState() for sid in members}, 0, 0)
+
+    # ------------------------------------------------------------------
+    # helpers
+
+    def _c(self, field: str, n: int = 1) -> None:
+        if self.counter is not None:
+            self.counter.incr(field, n)
+
+    def _g(self, field: str, v: int) -> None:
+        if self.counter is not None:
+            self.counter.put(field, v)
+
+    def _set_cluster(self, cluster: Dict[ServerId, PeerState], idx: int, term: int) -> None:
+        if self.role == LEADER and self._lease.cfg.enabled:
+            # the quorum-intersection safety argument holds only for
+            # the voter set the ack bases were collected against: ANY
+            # membership adoption drops the lease (the next read's
+            # renewal round rebuilds it against the new set)
+            if self._lease.revoke():
+                self._c("read_lease_revocations")
+        self.cluster = cluster
+        self.cluster_index_term = (idx, term)
+        if self.id not in self.cluster:
+            # we may have been removed; keep a self entry for
+            # bookkeeping — as a NON-voter, so quorum math reflects the
+            # new config (a removed leader must not count itself) and a
+            # removed member never stands for election
+            self.cluster = dict(cluster)
+            self.cluster[self.id] = PeerState(voter_status=None)
+
+    def members(self) -> List[ServerId]:
+        return list(self.cluster.keys())
+
+    def peers(self) -> Dict[ServerId, PeerState]:
+        return {sid: p for sid, p in self.cluster.items() if sid != self.id}
+
+    def voters(self) -> List[ServerId]:
+        return [sid for sid, p in self.cluster.items() if p.is_voter()]
+
+    def required_quorum(self) -> int:
+        return len(self.voters()) // 2 + 1
+
+    def is_voter_self(self) -> bool:
+        p = self.cluster.get(self.id)
+        return p is not None and p.is_voter()
+
+    def _new_token(self) -> int:
+        self._token_counter += 1
+        return self._token_counter
+
+    def _persist_term_vote(self) -> None:
+        self.meta.store_sync(self.cfg.uid, "current_term", self.current_term)
+        self.meta.store_sync(self.cfg.uid, "voted_for", self.voted_for)
+        self._g("term", self.current_term)
+
+    def _update_term(self, term: int, voted_for: Optional[ServerId] = None) -> None:
+        if term > self.current_term:
+            self.current_term = term
+            self.voted_for = voted_for
+            self._persist_term_vote()
+
+    # role -> ra_tpu_torch.health role code (AWAIT_CONDITION/RECEIVE_SNAPSHOT
+    # report as "held": not a device role, but a health-relevant fact)
+    _HEALTH_ROLE = {FOLLOWER: 0, PRE_VOTE: 1, CANDIDATE: 2, LEADER: 3}
+
+    def health_row(self) -> Tuple:
+        """One row of the node's per-group health scan (the actor-
+        backend mirror of the coordinator's vectorized device fetch;
+        ra_tpu_torch/health.py). Read by the detector thread between actor
+        turns: plain scalar reads, best-effort like the counters.
+        Returns (cluster, role_code, term, applied, commit, last_index,
+        match_gap, leader_key)."""
+        li, _ = self.log.last_index_term()
+        gap = 0
+        if self.role == LEADER:
+            pm = [
+                p.match_index for sid, p in self.cluster.items()
+                if sid != self.id and p.is_voter()
+            ]
+            if pm:
+                gap = max(0, li - min(pm))
+        leader = self.id if self.role == LEADER else self.leader_id
+        key = (
+            zlib.crc32(repr(leader).encode()) if leader is not None else None
+        )
+        return (
+            self.cfg.cluster_name, self._HEALTH_ROLE.get(self.role, 4),
+            self.current_term, self.last_applied, self.commit_index, li,
+            gap, key,
+        )
+
+    def overview(self) -> Dict[str, Any]:
+        li, lt = self.log.last_index_term()
+        return {
+            "id": self.id,
+            "role": self.role,
+            "leader": self.leader_id,
+            "current_term": self.current_term,
+            "commit_index": self.commit_index,
+            "last_applied": self.last_applied,
+            "last_index": li,
+            "last_term": lt,
+            "cluster": {sid: dataclasses.asdict(p) for sid, p in self.cluster.items()},
+            "cluster_change_permitted": self.cluster_change_permitted,
+            "machine_version": self.machine_version,
+            "effective_machine_version": self.effective_machine_version,
+            "machine": self.machine.overview(self.machine_state),
+            "log": self.log.overview(),
+        }
+
+    # ------------------------------------------------------------------
+    # recovery
+
+    def recover(self) -> None:
+        """Replay the log up to the persisted last_applied, discarding
+        effects (reference: ra_server:recover/1 src/ra_server.erl:469-528;
+        effects are not re-issued after restart, INTERNALS.md:91-106).
+        An orderly-shutdown recovery checkpoint, when present and valid,
+        replaces the replay prefix (reference:
+        maybe_recover_from_recovery_checkpoint :2769-2840)."""
+        snap = self.log.snapshot_index_term()
+        snap_idx = snap[0] if snap else 0
+        self._scan_cluster_changes(snap_idx + 1)
+        last_idx = self.log.last_index_term()[0]
+        target = min(max(self.commit_index, self.last_applied), last_idx)
+        # machine_state was recovered from the snapshot (or init): replay
+        # starts right above it regardless of the persisted watermark
+        self.last_applied = snap_idx
+        rc = self.log.read_recovery_checkpoint()
+        if rc is not None:
+            meta, state = rc
+            # single-use: a stale capture must never be replayed after a
+            # non-orderly restart, so consume it now regardless
+            self.log.discard_recovery_checkpoint()
+            # the orderly-shutdown capture itself proves entries up to
+            # meta.index were applied (hence committed) — it may be
+            # ahead of the async-persisted last_applied watermark
+            if (
+                snap_idx <= meta.index <= last_idx
+                and self.log.fetch_term(meta.index) == meta.term
+            ):
+                self.machine_state = state
+                self.effective_machine_version = meta.machine_version
+                self.last_applied = meta.index
+                target = max(target, meta.index)
+                self._c("recovery_checkpoint_used")
+        self.commit_index = max(target, snap_idx)
+        self._apply_to(self.commit_index, discard_effects=True)
+
+    def _scan_cluster_changes(self, from_idx: int) -> None:
+        last_idx, _ = self.log.last_index_term()
+
+        def scan(entry: Entry, acc: None) -> None:
+            cmd = entry.cmd
+            if isinstance(cmd, Command) and cmd.kind in (RA_JOIN, RA_LEAVE, RA_CLUSTER_CHANGE):
+                self._apply_cluster_entry(entry)
+            return acc
+
+        if from_idx <= last_idx:
+            try:
+                self.log.fold(from_idx, last_idx, scan, None)
+            except KeyError:
+                pass  # sparse/compacted region: snapshot cluster stands
+
+    # ------------------------------------------------------------------
+    # dispatch
+
+    def handle(self, msg: Any, from_peer: Optional[ServerId] = None) -> EffectList:
+        if isinstance(msg, FromPeer):
+            return self.handle(msg.msg, from_peer=msg.peer)
+        if isinstance(msg, tuple) and msg and msg[0] == "force_shrink":
+            return self._force_shrink(msg[1] if len(msg) > 1 else None)
+        if (
+            isinstance(msg, LogEvent)
+            and isinstance(msg.evt, tuple)
+            and msg.evt
+            and msg.evt[0] == "wal_down"
+            and self.role != AWAIT_CONDITION
+        ):
+            return self._on_wal_down()
+        if isinstance(msg, InfoRpc):
+            # capability probe: answer from any role
+            if from_peer is None:
+                return []
+            return [SendRpc(from_peer, InfoReply(self.current_term, self.machine.version()))]
+        if isinstance(msg, InfoReply):
+            effects: EffectList = []
+            peer = self.cluster.get(from_peer)
+            if self.role == LEADER and peer is not None:
+                peer.machine_version = msg.machine_version
+                self._maybe_upgrade_machine(effects)
+                self._pipeline(effects)
+            return effects
+        handler = {
+            FOLLOWER: self._handle_follower,
+            PRE_VOTE: self._handle_pre_vote,
+            CANDIDATE: self._handle_candidate,
+            LEADER: self._handle_leader,
+            RECEIVE_SNAPSHOT: self._handle_receive_snapshot,
+            AWAIT_CONDITION: self._handle_await_condition,
+        }[self.role]
+        effects = handler(msg, from_peer)
+        self._g("commit_index", self.commit_index)
+        self._g("last_applied", self.last_applied)
+        return effects
+
+    def _force_shrink(self, from_ref: Any) -> EffectList:
+        """Escape hatch: rewrite the cluster to just this member and
+        elect (used when a majority is permanently lost — reference:
+        force_shrink_members_to_current_member,
+        src/ra_server_proc.erl:270-272). DANGEROUS: discards the other
+        members' votes; only for operator-driven disaster recovery."""
+        effects: EffectList = []
+        idx = self.log.next_index()
+        cmd = Command(kind=RA_CLUSTER_CHANGE, data=("replace", ((self.id, "voter"),)))
+        self._set_cluster({self.id: PeerState()}, idx, self.current_term)
+        self.log.append(Entry(index=idx, term=self.current_term, cmd=cmd))
+        self.cluster_change_permitted = False
+        # disaster recovery must not stall on stickiness windows
+        self._forced_candidacy = True
+        self._call_for_election(effects)
+        if from_ref is not None:
+            effects.append(Reply(from_ref, ("ok", None)))
+        return effects
+
+    # ------------------------------------------------------------------
+    # role transitions
+
+    def _become(self, role: str, effects: EffectList) -> None:
+        prev = self.role
+        self.role = role
+        if prev != role:
+            self._obs_rec.record(
+                "role_change", node=self.id[1], group=self.id[0],
+                term=self.current_term, detail=f"{prev}->{role}",
+            )
+        if role == FOLLOWER:
+            self.votes = set()
+            self.pre_votes = set()
+        if prev == LEADER and role == AWAIT_CONDITION:
+            # a leader's hold (transfer / wal_down) may RESUME
+            # leadership: replies for commands that still commit are
+            # retained until the hold resolves to a real step-down
+            self._held_from_leader = True
+        if prev == LEADER and role != LEADER:
+            # leaving leadership in ANY direction — including a hold
+            # that may later resume: a transfer target can win a
+            # TimeoutNow election that (by design) bypasses stickiness,
+            # so the lease dies NOW, held reads redirect immediately,
+            # and in-flight acks must not resurrect the old window
+            # (LeaseTracker.revoke clears the stamps too)
+            if self._lease.revoke():
+                self._c("read_lease_revocations")
+                self._obs_rec.record(
+                    "lease_lost", node=self.id[1], group=self.id[0],
+                    term=self.current_term, detail=f"left leader for {role}",
+                )
+            self._term_commit_ok = False
+            if self.pending_lease_reads:
+                lhint = self.leader_id if self.leader_id != self.id else None
+                for _ri, ref, _fn in self.pending_lease_reads:
+                    effects.append(Reply(ref, ("redirect", lhint)))
+                self.pending_lease_reads = []
+        if role in (FOLLOWER, LEADER):
+            self._forced_candidacy = False
+        stepping_down = (prev == LEADER and role not in (LEADER, AWAIT_CONDITION)) or (
+            prev == AWAIT_CONDITION
+            and role != LEADER
+            and getattr(self, "_held_from_leader", False)
+        )
+        if role == LEADER or stepping_down:
+            self._held_from_leader = False
+        if stepping_down:
+            # stepping down for real: outstanding client replies will
+            # never be issued by us — redirect the callers to the new
+            # leader (hint may be None) so they retry immediately
+            # instead of hanging out their full timeout, and clear
+            # snapshot-transfer statuses so a later election does not
+            # find peers stranded in sending/backoff with no sender or
+            # timer behind them. The command MAY still commit if the
+            # entry survives on the new leader, so the verdict is
+            # "maybe": an immediate error to plain callers, a retry
+            # target only for callers that opted into at-least-once.
+            hint = self.leader_id if self.leader_id != self.id else None
+            if self.pending_replies:
+                self._obs_rec.record(
+                    "deposition", node=self.id[1], group=self.id[0],
+                    term=self.current_term,
+                    detail=f"{len(self.pending_replies)} pending futures "
+                           "answered 'maybe'",
+                )
+            for fut in self.pending_replies.values():
+                effects.append(Reply(fut, ("maybe", hint)))
+            self.pending_replies = {}
+            self.pending_queries = []
+            for p in self.cluster.values():
+                if status_kind(p.status) in ("sending_snapshot", "snapshot_backoff"):
+                    p.status = "normal"
+        if prev != role:
+            effects.append(StateEnter(role))
+            effects.extend(self.machine.state_enter(role, self.machine_state))
+
+    def _become_leader(self, effects: EffectList) -> None:
+        self.leader_id = self.id
+        last_idx, _ = self.log.last_index_term()
+        now = self._clock.monotonic()
+        for sid, p in self.cluster.items():
+            if sid != self.id:
+                p.next_index = last_idx + 1
+                p.match_index = 0
+                p.commit_index_sent = 0
+                p.status = "normal"
+                # check-quorum grace: a fresh leader owes every peer a
+                # full window before their silence can depose it
+                self._peer_contact[sid] = now
+        self.cluster_change_permitted = False
+        self.pending_cluster_change = None
+        self.query_index = 0
+        self.pending_queries = []
+        for p in self.cluster.values():
+            p.query_index = 0
+        # fresh leadership starts bare: no lease (earned by the first
+        # quorum of acks), no read-index proof until our noop commits
+        self._lease.revoke()
+        self._lease_renew_t = 0.0
+        self._term_commit_ok = False
+        self._become(LEADER, effects)
+        effects.append(
+            RecordLeader(self.cfg.cluster_name, self.id, tuple(self.members()))
+        )
+        # Append a noop for the new term; its commit re-enables cluster
+        # changes and (upgrade strategy permitting) bumps the machine
+        # version (reference: post_election_effects src/ra_server.erl:
+        # 4028-4064).
+        noop = Command(kind=NOOP, machine_version=self._required_machine_version())
+        self._append_leader(noop, effects)
+        self._pipeline(effects)
+
+    def _become_follower(self, effects: EffectList, leader: Optional[ServerId] = None) -> None:
+        if leader is not None and leader != self.leader_id:
+            self.leader_id = leader
+            effects.append(
+                RecordLeader(self.cfg.cluster_name, leader, tuple(self.members()))
+            )
+        self._become(FOLLOWER, effects)
+
+    # ------------------------------------------------------------------
+    # leader
+
+    def _handle_leader(self, msg: Any, from_peer: Optional[ServerId]) -> EffectList:
+        effects: EffectList = []
+        if from_peer is not None and from_peer in self.cluster:
+            # ANY inbound message from a member is check-quorum contact
+            self._peer_contact[from_peer] = self._clock.monotonic()
+        if isinstance(msg, Command):
+            self._c("commands")
+            self._append_leader(msg, effects)
+            self._pipeline(effects)
+            return effects
+        if isinstance(msg, list):  # batched commands
+            self._c("commands", len(msg))
+            for cmd in msg:
+                self._append_leader(cmd, effects)
+            self._pipeline(effects)
+            return effects
+        if isinstance(msg, AppendEntriesReply):
+            return self._leader_aer_reply(msg, from_peer, effects)
+        if isinstance(msg, InstallSnapshotResult):
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects, leader=None)
+                return effects
+            peer = self.cluster.get(from_peer)
+            if peer is not None:
+                peer.status = "normal"
+                peer.match_index = max(peer.match_index, msg.last_index)
+                peer.next_index = max(peer.next_index, msg.last_index + 1)
+                self._maybe_emit_pending_release_cursor()  # no_snapshot_sends
+                # a snapshot can carry a nonvoter past its promotion
+                # target just like an AER ack (reference: leader_received_
+                # install_snapshot_result_and_promotes_voter)
+                self._maybe_promote_peer(from_peer, peer, effects)
+                self._evaluate_quorum(effects)
+                self._pipeline(effects)
+            return effects
+        if isinstance(msg, RequestVoteRpc):
+            if msg.candidate_id not in self.cluster:
+                # a removed (or never-known) member's stale election must
+                # not depose a working leader (reference:
+                # leader_does_not_abdicate_to_unknown_peer)
+                effects.append(
+                    SendRpc(from_peer, RequestVoteResult(self.current_term, False))
+                )
+                return effects
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+                return effects
+            effects.append(SendRpc(from_peer, RequestVoteResult(self.current_term, False)))
+            return effects
+        if isinstance(msg, PreVoteRpc):
+            # a backing-off peer that starts pre-voting is alive and
+            # still behind: re-engage it with the snapshot immediately
+            # instead of waiting out the retry backoff (reference:
+            # leader_pre_vote_sends_snapshot_to_backoff_peer)
+            peer = self.cluster.get(msg.candidate_id)
+            if peer is not None and status_kind(peer.status) == "snapshot_backoff":
+                effects.append(SendSnapshot(msg.candidate_id,
+                                            meta=self.log.snapshot_meta()))
+            return self._process_pre_vote(msg, from_peer, effects)
+        if isinstance(msg, AppendEntriesRpc):
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects, leader=from_peer)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+            else:
+                # two leaders in one term must not happen; tell them ours
+                effects.append(
+                    SendRpc(
+                        from_peer,
+                        AppendEntriesReply(
+                            self.current_term, False,
+                            next_index=self.log.next_index(),
+                            last_index=self.log.last_index_term()[0],
+                            last_term=self.log.last_index_term()[1],
+                        ),
+                    )
+                )
+            return effects
+        if isinstance(msg, HeartbeatReply):
+            peer = self.cluster.get(from_peer)
+            if peer is not None and msg.term == self.current_term:
+                self._lease_credit(from_peer)
+                peer.query_index = max(peer.query_index, msg.query_index)
+                self._evaluate_queries(effects)
+            elif msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects)
+            return effects
+        if isinstance(msg, LogEvent):
+            self.log.handle_event(msg.evt)
+            self._maybe_emit_pending_release_cursor()  # ("written", idx)
+            self._evaluate_quorum(effects)
+            self._pipeline(effects)
+            return effects
+        if isinstance(msg, Tick):
+            return self._leader_tick(msg, effects)
+        if isinstance(msg, ElectionTimeout):
+            return effects  # leaders ignore election timeouts
+        if isinstance(msg, (NodeEvent, DownEvent)):
+            return self._leader_node_event(msg, effects)
+        if isinstance(msg, TimeoutNow):
+            return effects
+        # membership / control commands arrive as plain tuples
+        if isinstance(msg, tuple) and msg:
+            return self._leader_control(msg, effects)
+        return effects
+
+    def _append_leader(self, cmd: Command, effects: EffectList,
+                       exempt: bool = False) -> None:
+        """Append a command to the leader's log, handling membership
+        commands and reply-after-append modes (reference:
+        append_log_leader src/ra_server.erl:3485-3550). ``exempt``
+        bypasses the admission window for internal must-deliver appends
+        (fired exactly once with no retry path, e.g. monitor
+        down/nodedown events)."""
+        if cmd.kind != NOOP and not exempt and not cmd.internal:
+            # storage-degraded pre-emption (docs/INTERNALS.md §21):
+            # space-class WAL failure or hard disk watermark. Checked
+            # before the backlog window — a degraded node must not let
+            # clients consume backlog it cannot durably append. The
+            # waiter opens when the probe write succeeds.
+            pressure = self.cfg.pressure
+            if pressure is not None and pressure.blocked():
+                if cmd.from_ref is not None:
+                    self._c("commands_rejected_nospace")
+                    effects.append(Reply(
+                        cmd.from_ref,
+                        REJECT_NOSPACE + (pressure.waiter(),),
+                    ))
+                else:
+                    self._c("commands_dropped_overload")
+                self._obs_rec.record(
+                    "admission_reject", node=self.id[1], group=self.id[0],
+                    term=self.current_term, detail="nospace",
+                )
+                return
+            # admission window: bound the appended-but-unapplied backlog
+            # (noops and machine-internal commands bypass — the commit
+            # gate must never be starved, and timer fires / Append
+            # effects fire exactly once with no retry path). Rejected
+            # callers back off and retry; noreply commands owe no ack;
+            # notify-mode pipelined commands are at-most-once by
+            # contract (clients resend on a missing applied
+            # notification, reference pipeline_command semantics) —
+            # drops are counted either way
+            backlog = self.log.next_index() - 1 - self.last_applied
+            if backlog >= self.cfg.max_command_backlog:
+                if cmd.from_ref is not None:
+                    self._c("commands_rejected")
+                    # the third element is the window-release waiter:
+                    # api.process_command parks on it instead of a
+                    # fixed sleep poll (docs/INTERNALS.md §16)
+                    effects.append(Reply(
+                        cmd.from_ref,
+                        REJECT_OVERLOADED + (self._adm_gate.waiter(),),
+                    ))
+                else:
+                    self._c("commands_dropped_overload")
+                self._obs_rec.record(
+                    "admission_reject", node=self.id[1], group=self.id[0],
+                    term=self.current_term, detail=f"backlog={backlog}",
+                )
+                return
+        if cmd.kind in (RA_JOIN, RA_LEAVE, RA_CLUSTER_CHANGE):
+            if not self._append_cluster_cmd(cmd, effects):
+                return
+        idx = self.log.next_index()
+        entry = Entry(index=idx, term=self.current_term, cmd=cmd)
+        self.log.append(entry)
+        self._g("last_index", idx)
+        if cmd.ts is not None:
+            now_ns = time.monotonic_ns()
+            lat = self._lat
+            if lat is None or now_ns - lat[1] > 10_000_000_000:
+                # one in-flight commit-latency sample; a sample stranded
+                # >10s (leadership churn) is abandoned and replaced
+                self._lat = [idx, cmd.ts, now_ns, 0, 0, 0]
+                self._commit_h["submit_append"].record(now_ns - cmd.ts)
+        if cmd.reply_mode == "after_log_append" and cmd.from_ref is not None:
+            effects.append(Reply(cmd.from_ref, ("ok", (idx, self.current_term), self.id)))
+        elif cmd.reply_mode == "await_consensus" and cmd.from_ref is not None:
+            self.pending_replies[idx] = cmd.from_ref
+
+    def _append_cluster_cmd(self, cmd: Command, effects: EffectList) -> bool:
+        """Returns False when the change must be rejected. Only one
+        in-flight cluster change is allowed (Raft one-at-a-time member
+        changes; reference: src/ra_server.erl:3491-3542)."""
+        if not self.cluster_change_permitted:
+            if cmd.from_ref is not None:
+                effects.append(
+                    Reply(cmd.from_ref, ("error", "cluster_change_not_permitted"))
+                )
+            return False
+        idx = self.log.next_index()
+        new_cluster = {sid: dataclasses.replace(p) for sid, p in self.cluster.items()}
+        if cmd.kind == RA_JOIN:
+            member, voter = cmd.data
+            if member in new_cluster:
+                if cmd.from_ref is not None:
+                    effects.append(Reply(cmd.from_ref, ("ok", "already_member")))
+                return False
+            ps = PeerState(next_index=self.log.next_index() + 1)
+            if not voter:
+                ps.voter_status = ("nonvoter", self.log.last_index_term()[0])
+            new_cluster[member] = ps
+        elif cmd.kind == RA_LEAVE:
+            member = cmd.data
+            if member not in new_cluster:
+                if cmd.from_ref is not None:
+                    effects.append(Reply(cmd.from_ref, ("ok", "not_member")))
+                return False
+            del new_cluster[member]
+        else:  # RA_CLUSTER_CHANGE: explicit voter-status updates
+            for member, voter_status in cmd.data:
+                if member in new_cluster:
+                    new_cluster[member].voter_status = voter_status
+        self.previous_cluster = (
+            self.cluster_index_term[0],
+            self.cluster_index_term[1],
+            self.cluster,
+        )
+        self._set_cluster(new_cluster, idx, self.current_term)
+        self.cluster_change_permitted = False
+        return True
+
+    def _leader_aer_reply(
+        self, msg: AppendEntriesReply, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        if msg.term > self.current_term:
+            self._update_term(msg.term)
+            self._become_follower(effects)
+            return effects
+        peer = self.cluster.get(from_peer)
+        if peer is None or msg.term < self.current_term:
+            return effects
+        # any same-term reply — success or rejection — proves the
+        # follower processed an AER of ours at this term (its election
+        # timer reset), so it credits the lease basis
+        self._lease_credit(from_peer)
+        if msg.success:
+            peer.match_index = max(peer.match_index, msg.last_index)
+            peer.next_index = max(peer.next_index, msg.last_index + 1)
+            if peer.status == "suspended":
+                peer.status = "normal"
+            self._maybe_emit_pending_release_cursor()
+            self._maybe_promote_peer(from_peer, peer, effects)
+            self._evaluate_quorum(effects)
+        else:
+            self._c("aer_replies_failed")
+            # Stale-reply detection via last_index/last_term (reference
+            # relies on these reply fields, src/ra.hrl:131-143).
+            hint = max(1, msg.next_index)
+            peer.next_index = max(min(hint, msg.last_index + 1), peer.match_index + 1)
+        self._pipeline(effects)
+        return effects
+
+    def _maybe_promote_peer(self, sid: ServerId, peer: PeerState, effects: EffectList) -> None:
+        if (
+            isinstance(peer.voter_status, tuple)
+            and peer.voter_status[0] == "nonvoter"
+            and peer.match_index >= peer.voter_status[1]
+            and self.cluster_change_permitted
+        ):
+            cmd = Command(kind=RA_CLUSTER_CHANGE, data=((sid, "voter"),))
+            self._append_leader(cmd, effects)
+
+    def _evaluate_quorum(self, effects: EffectList) -> None:
+        """match_index -> commit_index quorum scan. The leader counts its
+        own durable (written) watermark, not its in-memory tail
+        (reference: evaluate_quorum/agreed_commit src/ra_server.erl:
+        3633-3688)."""
+        written_idx, _ = self.log.last_written()
+        self._g("last_written_index", written_idx)
+        lat = self._lat
+        if lat is not None and lat[3] == 0 and written_idx >= lat[0]:
+            lat[3] = time.monotonic_ns()
+            self._commit_h["append_durable"].record(lat[3] - lat[2])
+        match = []
+        for sid, p in self.cluster.items():
+            if not p.is_voter():
+                continue
+            match.append(written_idx if sid == self.id else p.match_index)
+        if not match:
+            return
+        agreed = dec.agreed_commit(match)
+        if agreed > self.commit_index:
+            # current-term gate (Raft 5.4.2): same math as
+            # dec.new_commit_index, with the sort done once
+            if self.log.fetch_term(agreed) == self.current_term:
+                self.commit_index = agreed
+                # read-index precondition met: commit_index now covers
+                # an entry of our own term (the noop at the latest)
+                self._term_commit_ok = True
+                if (
+                    lat is not None and lat[3] and lat[4] == 0
+                    and agreed >= lat[0]
+                ):
+                    lat[4] = time.monotonic_ns()
+                    self._commit_h["durable_commit"].record(lat[4] - lat[3])
+                self._apply_to(agreed, effects=effects)
+
+    def _evaluate_queries(self, effects: EffectList) -> None:
+        if not self.pending_queries:
+            return
+        qis = []
+        for sid, p in self.cluster.items():
+            if not p.is_voter():
+                continue
+            qis.append(self.query_index if sid == self.id else p.query_index)
+        agreed_qi = dec.agreed_commit(qis)
+        still = []
+        for qi, from_ref, fn in self.pending_queries:
+            if qi <= agreed_qi:
+                self._c("consistent_queries")
+                effects.append(Reply(from_ref, ("ok", fn(self.machine_state), self.id)))
+            else:
+                still.append((qi, from_ref, fn))
+        self.pending_queries = still
+
+    # ------------------------------------------------------------------
+    # clock-bound leader lease (docs/INTERNALS.md §20)
+
+    def _lease_credit(self, from_peer: Optional[ServerId]) -> None:
+        """Fold a same-term response from ``from_peer`` into the lease
+        (no-op when leases are off or the response is unsolicited)."""
+        lt = self._lease
+        if not lt.cfg.enabled or from_peer is None:
+            return
+        if not lt.record_ack(from_peer):
+            return
+        now = self._clock.monotonic()
+        had = lt.valid(now)
+        if lt.refresh(self.voters(), self.id, now) and not had and lt.valid(now):
+            self._obs_rec.record(
+                "lease_acquired", node=self.id[1], group=self.id[0],
+                term=self.current_term,
+                detail=f"expires in {lt.remaining(now):.3f}s",
+            )
+
+    def _lease_renewal_round(self, now: float, effects: EffectList) -> None:
+        """One throttled heartbeat fan-out whose acks extend the lease.
+        There are no idle leader heartbeats in this design, so renewal
+        is DEMAND-DRIVEN: reads landing in the back half of the window
+        fund the quorum round that extends it — one round per lease
+        window amortized over every read inside it. No pending query
+        rides on the round; at most one per quarter-window."""
+        lt = self._lease
+        if now - self._lease_renew_t < lt.cfg.window_s / 4.0:
+            return
+        self._lease_renew_t = now
+        hb = HeartbeatRpc(self.current_term, self.id, self.query_index)
+        for sid, p in self.peers().items():
+            if p.is_voter():
+                lt.record_send(sid, now)
+                effects.append(SendRpc(sid, hb))
+
+    def _stickiness_lapsed(self) -> bool:
+        """False while the leader-stickiness promise window holds: a
+        live leader heard within one election timeout (leaders count
+        themselves as in perpetual contact). Callers gate on cfg.lease."""
+        if self.leader_id is None:
+            return True
+        if self.role == LEADER:
+            return False
+        return (
+            self._clock.monotonic() - self._leader_contact
+            >= self.cfg.election_timeout_s
+        )
+
+    def read_staleness_s(self) -> float:
+        """Upper bound on how stale a local read of ``machine_state``
+        is, in seconds of leader wall-clock time (staleness-bounded
+        follower reads). inf until a leader-stamped freshness anchor
+        has been applied — lease-off senders never stamp one, so
+        bounded reads stay conservative there by construction."""
+        if self._fresh_ts <= 0.0:
+            return float("inf")
+        return (
+            max(0.0, self._clock.time() - self._fresh_ts)
+            + self._lease.cfg.drift_epsilon_s
+        )
+
+    def _leader_control(self, msg: tuple, effects: EffectList) -> EffectList:
+        kind = msg[0]
+        if kind == "snapshot_sender_down":
+            # routed by the runtime's monitor plumbing when a transfer
+            # thread exits (reference: handle_down snapshot_sender,
+            # src/ra_server.erl:2640-2660)
+            _, sid, reason = msg
+            peer = self.cluster.get(sid)
+            if peer is None or status_kind(peer.status) != "sending_snapshot":
+                return effects
+            if reason == "normal":
+                peer.status = "normal"
+                self._maybe_emit_pending_release_cursor()
+            else:
+                # exponential backoff: 5000 * 2^(n-1) ms capped at 60 s
+                attempts = peer.status[1] + 1
+                peer.status = ("snapshot_backoff", attempts)
+                delay = min(5000 * (1 << (attempts - 1)), 60000)
+                self._c("snapshot_send_failures")
+                effects.append(StartSnapshotRetryTimer(sid, delay))
+            return effects
+        if kind == "snapshot_retry_timeout":
+            _, sid = msg
+            peer = self.cluster.get(sid)
+            if peer is not None and status_kind(peer.status) == "snapshot_backoff":
+                # keep the backoff status: the send-effect handler reads
+                # the attempt count from it (reference:
+                # snapshot_backoff_prevents_immediate_retry)
+                effects.append(SendSnapshot(sid, meta=self.log.snapshot_meta()))
+            return effects
+        if kind == "consistent_query":
+            _, fn, from_ref = msg
+            lt = self._lease
+            if lt.cfg.enabled:
+                now = self._clock.monotonic()
+                if self._term_commit_ok and lt.valid(now):
+                    # lease fast path (§20): linearizable at
+                    # read_index = commit_index with ZERO quorum
+                    # traffic — the lease quorum's stickiness promise
+                    # stands in for the heartbeat round
+                    read_idx = self.commit_index
+                    if self.last_applied >= read_idx:
+                        self._c("read_lease_served")
+                        self._c("consistent_queries")
+                        effects.append(
+                            Reply(from_ref, ("ok", fn(self.machine_state), self.id))
+                        )
+                    else:
+                        self.pending_lease_reads.append((read_idx, from_ref, fn))
+                    if lt.remaining(now) < lt.cfg.window_s / 2.0:
+                        self._lease_renewal_round(now, effects)
+                    return effects
+                if lt.expiry > 0.0:
+                    # count each lapse once, at detection
+                    self._c("read_lease_expirations")
+                    self._obs_rec.record(
+                        "lease_lost", node=self.id[1], group=self.id[0],
+                        term=self.current_term, detail="expired",
+                    )
+                    lt.expiry = 0.0
+                self._c("read_quorum_fallback")
+            self.query_index += 1
+            self.pending_queries.append((self.query_index, from_ref, fn))
+            hb = HeartbeatRpc(self.current_term, self.id, self.query_index)
+            if lt.cfg.enabled:
+                now = self._clock.monotonic()
+            for sid, p in self.peers().items():
+                if p.is_voter():
+                    if lt.cfg.enabled:
+                        # the fallback round's own acks re-earn the
+                        # lease: subsequent reads go local again
+                        lt.record_send(sid, now)
+                    effects.append(SendRpc(sid, hb))
+            self._evaluate_queries(effects)  # single-node clusters
+            return effects
+        if kind == "transfer_leadership":
+            _, target, from_ref = msg
+            if target == self.id:
+                if from_ref is not None:
+                    effects.append(Reply(from_ref, ("ok", "already_leader")))
+                return effects
+            if target not in self.cluster:
+                if from_ref is not None:
+                    effects.append(Reply(from_ref, ("error", "unknown_member")))
+                return effects
+            peer = self.cluster[target]
+            if not peer.is_voter():
+                if from_ref is not None:
+                    effects.append(Reply(from_ref, ("error", "non_voter")))
+                return effects
+            if peer.match_index + 1 != self.log.next_index():
+                # only a CONFIRMED-caught-up voter may take over
+                # (match_index, not the optimistically-advanced
+                # next_index — a peer that was pipelined to but never
+                # acked must not pass)
+                if from_ref is not None:
+                    effects.append(Reply(from_ref, ("error", "not_up_to_date")))
+                return effects
+            if from_ref is not None:
+                effects.append(Reply(from_ref, ("ok", None)))
+            effects.append(SendRpc(target, TimeoutNow()))
+            # hold while the hand-off is in flight: the target's
+            # higher-term vote/AER releases the hold into follower; if
+            # nothing arrives, fall back to leading (reference:
+            # transfer_leadership_condition, src/ra_server.erl:1015-1035,
+            # 2233-2243)
+
+            def transfer_cond(srv: "Server", m: Any) -> bool:
+                return (
+                    isinstance(m, (AppendEntriesRpc, InstallSnapshotRpc))
+                    and m.term > srv.current_term
+                )
+
+            self.await_condition(
+                Condition(
+                    predicate=transfer_cond,
+                    timeout_transition_to=LEADER,
+                    # short hold: if the TimeoutNow was lost, resume
+                    # leading after 5 s rather than the 30 s default
+                    # (the held leader is alive, so no peer elects)
+                    timeout_duration_ms=5000,
+                ),
+                effects,
+            )
+            return effects
+        if kind == "aux":
+            _, aux_kind, cmd, from_ref = msg
+            return self._handle_aux(aux_kind, cmd, from_ref, effects)
+        return effects
+
+    def _leader_tick(self, msg: Tick, effects: EffectList) -> EffectList:
+        if self._check_quorum_lost():
+            # check-quorum: no quorum of voters has been HEARD within
+            # the window — one-way partitions leave our AERs flowing
+            # out (so no follower ever times out) while nothing comes
+            # back. Step down: _become answers every pending client
+            # "maybe" immediately (no wedged clients) and the now-
+            # silent followers elect a connected leader.
+            self._c("check_quorum_stepdowns")
+            self._obs_rec.record(
+                "check_quorum_stepdown", node=self.id[1], group=self.id[0],
+                term=self.current_term,
+                detail=f"quorum silent > {self.cfg.check_quorum_window_s}s",
+            )
+            self.leader_id = None
+            self._become_follower(effects, leader=None)
+            return effects
+        # persist last_applied so effects are not re-issued on recovery
+        # (reference: persist_last_applied src/ra_server.erl:2540-2567)
+        self.meta.store(self.cfg.uid, "last_applied", self.last_applied)
+        effects.extend(self.machine.tick(msg.now_ms, self.machine_state))
+        # probe peers whose supported machine version is unknown or
+        # below ours (rolling upgrades: a peer restarted with a newer
+        # machine must be re-discovered), and bump once the upgrade
+        # strategy's requirement is met. Probing stops once every peer
+        # reports >= our version.
+        own = self.machine.version()
+        for sid, p in self.peers().items():
+            if p.machine_version is None or (
+                p.machine_version < own
+                and self.effective_machine_version < own
+            ):
+                # re-probe lagging peers only while an upgrade is still
+                # pending locally (quorum-strategy clusters stop probing
+                # a legitimately-old minority once the bump lands)
+                effects.append(SendRpc(sid, InfoRpc(self.current_term, self.id)))
+        # stale-peer re-send: a peer a full pipeline window ahead of its
+        # confirmed match that made NO progress across two ticks cannot
+        # accept anything we would pipeline; rewind next_index to
+        # match + 1 so replication resumes from a point it can append
+        # (reference: stale peer handling around the pipeline window,
+        # src/ra_server.erl:2308-2329)
+        prev = getattr(self, "_stale_match", None)
+        if prev is None:
+            prev = self._stale_match = {}
+        for sid, p in self.peers().items():
+            if (
+                status_kind(p.status) == "normal"
+                and p.next_index - p.match_index > self.cfg.max_pipeline_count
+            ):
+                # match 0 means nothing confirmed THIS term (fresh
+                # leader): never rewind to 1 — that would re-send the
+                # whole log (or stream snapshots) to caught-up peers;
+                # the tick's empty probe elicits the reject hint that
+                # rewinds next_index to the peer's true position
+                if prev.get(sid) == p.match_index and p.match_index > 0:
+                    p.next_index = p.match_index + 1
+                    self._c("stale_peer_resends")
+                prev[sid] = p.match_index
+            else:
+                prev.pop(sid, None)
+        self._maybe_upgrade_machine(effects)
+        self._pipeline(effects, force_commit_sync=True)
+        return effects
+
+    def _check_quorum_lost(self) -> bool:
+        """True when check-quorum is enabled and no quorum of voters
+        (self included) has been heard within the window. Peers never
+        seen before (fresh joins) count as just-contacted so a
+        membership change cannot depose a healthy leader."""
+        win = self.cfg.check_quorum_window_s
+        if win <= 0:
+            return False
+        now = self._clock.monotonic()
+        live = 1 if self.is_voter_self() else 0
+        for sid, p in self.cluster.items():
+            if sid == self.id or not p.is_voter():
+                continue
+            if now - self._peer_contact.setdefault(sid, now) <= win:
+                live += 1
+        return live < self.required_quorum()
+
+    def _required_machine_version(self) -> int:
+        """The version the upgrade strategy currently allows (never below
+        the effective version). Unknown peer versions count as
+        unsupporting (reference: src/ra_server.erl:223-233)."""
+        vers = []
+        for sid, p in self.cluster.items():
+            if sid == self.id:
+                vers.append(self.machine.version())
+            elif p.is_voter() or isinstance(p.voter_status, tuple):
+                vers.append(p.machine_version if p.machine_version is not None else -1)
+        if not vers:
+            return max(self.machine.version(), self.effective_machine_version)
+        if self.cfg.machine_upgrade_strategy == "quorum":
+            vers.sort(reverse=True)
+            need = len(vers) // 2 + 1
+            v = vers[need - 1]
+        else:  # "all"
+            v = min(vers)
+        return max(v, self.effective_machine_version)
+
+    def _maybe_upgrade_machine(self, effects: EffectList) -> None:
+        req = self._required_machine_version()
+        if req <= self.effective_machine_version or not self.cluster_change_permitted:
+            return
+        pending = getattr(self, "_upgrade_noop_idx", None)
+        if pending is not None and pending > self.last_applied:
+            return  # a bump noop is already in flight
+        idx = self.log.next_index()
+        self._append_leader(Command(kind=NOOP, machine_version=req), effects)
+        self._upgrade_noop_idx = idx
+
+    def _leader_node_event(self, msg: Any, effects: EffectList) -> EffectList:
+        if isinstance(msg, NodeEvent):
+            for sid, p in self.peers().items():
+                if sid[1] == msg.node:
+                    # neither direction may clobber a LIVE transfer —
+                    # that would let a no_snapshot_sends cursor fire
+                    # mid-send and lose the attempt count (the sender's
+                    # own death routes through snapshot_sender_down,
+                    # which arms the backoff); nodeup resets
+                    # disconnected/backoff (reference:
+                    # snapshot_backoff_reset_on_nodeup)
+                    if status_kind(p.status) == "sending_snapshot":
+                        continue
+                    p.status = "disconnected" if msg.status == "down" else "normal"
+            data = ("nodeup", msg.node) if msg.status == "up" else ("nodedown", msg.node)
+            # node/monitor events fire exactly once with no retry path:
+            # they must never be shed by the admission window
+            self._append_leader(Command(kind=USR, data=data), effects,
+                                exempt=True)
+        else:  # DownEvent
+            self._append_leader(
+                Command(kind=USR, data=("down", msg.target, msg.info)), effects,
+                exempt=True,
+            )
+        self._pipeline(effects)
+        return effects
+
+    def _pipeline(self, effects: EffectList, force_commit_sync: bool = False) -> None:
+        """Build pipelined AppendEntries for every peer (reference:
+        make_pipelined_rpc_effects src/ra_server.erl:2285-2434)."""
+        last_idx, _ = self.log.last_index_term()
+        for sid, peer in self.peers().items():
+            if status_kind(peer.status) in (
+                "sending_snapshot", "snapshot_backoff", "suspended",
+                "disconnected",
+            ):
+                continue
+            sent_any = False
+            while (
+                peer.next_index <= last_idx
+                and (peer.next_index - peer.match_index) <= self.cfg.max_pipeline_count
+            ):
+                if not self._send_aer(sid, peer, effects):
+                    break
+                sent_any = True
+            if not sent_any and (
+                peer.commit_index_sent < self.commit_index or force_commit_sync
+            ):
+                self._send_aer(sid, peer, effects, empty=True)
+
+    def _send_aer(
+        self, sid: ServerId, peer: PeerState, effects: EffectList, empty: bool = False
+    ) -> bool:
+        prev_idx = peer.next_index - 1
+        prev_term = self.log.fetch_term(prev_idx)
+        snap = self.log.snapshot_index_term()
+        if prev_term is None or (snap is not None and prev_idx < snap[0]):
+            # prev entry compacted away: peer needs a snapshot
+            # (reference: make_rpc_effect snapshot branch
+            # src/ra_server.erl:2392-2415). Carry the attempt count
+            # across retries so repeated sender deaths keep backing off.
+            attempts = (
+                peer.status[1] if status_kind(peer.status) == "snapshot_backoff"
+                else 0
+            )
+            peer.status = ("sending_snapshot", attempts)
+            effects.append(SendSnapshot(sid, meta=self.log.snapshot_meta()))
+            return False
+        entries: Tuple[Entry, ...] = ()
+        if not empty:
+            last_idx, _ = self.log.last_index_term()
+            hi = min(last_idx, prev_idx + self.cfg.max_aer_batch_size)
+            if hi > prev_idx:
+                acc: List[Entry] = []
+                self.log.fold(prev_idx + 1, hi, lambda e, a: (a.append(e), a)[1], acc)
+                entries = tuple(acc)
+        commit_ts = 0.0
+        if self._lease.cfg.enabled:
+            # lease basis stamp (oldest outstanding send wins) + the
+            # wall-clock freshness stamp followers anchor bounded local
+            # reads to; both gated on cfg.lease so the default path
+            # pays no clock reads
+            self._lease.record_send(sid, self._clock.monotonic())
+            commit_ts = self._clock.time()
+        rpc = AppendEntriesRpc(
+            term=self.current_term,
+            leader_id=self.id,
+            prev_log_index=prev_idx,
+            prev_log_term=prev_term,
+            leader_commit=self.commit_index,
+            entries=entries,
+            commit_ts=commit_ts,
+        )
+        effects.append(SendRpc(sid, rpc))
+        self._c("msgs_sent")
+        peer.commit_index_sent = max(peer.commit_index_sent, self.commit_index)
+        if entries:
+            peer.next_index = entries[-1].index + 1
+        return bool(entries)
+
+    # ------------------------------------------------------------------
+    # apply loop
+
+    def _apply_to(
+        self, idx: int, effects: Optional[EffectList] = None, discard_effects: bool = False
+    ) -> None:
+        """Apply committed entries to the machine (reference: apply_to /
+        apply_with src/ra_server.erl:3244-3335)."""
+        sink: EffectList = [] if effects is None else effects
+        last_idx, _ = self.log.last_index_term()
+        hi = min(idx, last_idx)
+        if hi <= self.last_applied:
+            return
+        lo = self.last_applied + 1
+        notify: Dict[Any, List[Any]] = {}
+
+        def apply_one(entry: Entry, acc: None) -> None:
+            self._apply_entry(entry, sink if not discard_effects else [], notify,
+                              discard_effects)
+            return acc
+
+        self.log.fold(lo, hi, apply_one, None)
+        self.last_applied = hi
+        # apply progress released admission-window room: wake parked
+        # rejected clients (one attribute check when none are parked)
+        self._adm_gate.open()
+        self._c("applied", hi - lo + 1)
+        if self.pending_lease_reads and not discard_effects:
+            # lease-admitted reads whose read_index is now applied:
+            # linearizable as of admission time (state at >= read_index)
+            still_reads = []
+            for ridx, ref, fn in self.pending_lease_reads:
+                if ridx <= hi:
+                    self._c("read_lease_served")
+                    self._c("consistent_queries")
+                    sink.append(Reply(ref, ("ok", fn(self.machine_state), self.id)))
+                else:
+                    still_reads.append((ridx, ref, fn))
+            self.pending_lease_reads = still_reads
+        if self._lease.cfg.enabled:
+            # freshness floor for staleness-bounded local reads: a
+            # leader fully caught up to its commit is fresh as of now;
+            # a follower promotes the leader-stamped anchor once the
+            # anchored index is applied
+            if self.role == LEADER and hi >= self.commit_index:
+                self._fresh_ts = self._clock.time()
+            elif self._fresh_anchor[1] > 0.0 and self._fresh_anchor[0] <= hi:
+                self._fresh_ts = max(self._fresh_ts, self._fresh_anchor[1])
+                self._fresh_anchor = (0, 0.0)
+        if not discard_effects:
+            for who, corrs in notify.items():
+                sink.append(Notify(who, tuple(corrs)))
+            # machine-driven snapshot/checkpoint decisions ride on the
+            # release_cursor effects the machine returned (collected in
+            # _apply_entry); cluster-change commits unlock further changes
+        if self.commit_index >= self.cluster_index_term[0]:
+            self.cluster_change_permitted = self.role == LEADER
+        # promote pending nonvoters once changes are permitted again
+        if self.role == LEADER and self.cluster_change_permitted and not discard_effects:
+            for sid, p in list(self.peers().items()):
+                self._maybe_promote_peer(sid, p, sink)
+
+    def _apply_entry(
+        self,
+        entry: Entry,
+        effects: EffectList,
+        notify: Dict[Any, List[Any]],
+        discard: bool,
+    ) -> None:
+        cmd = entry.cmd
+        if not isinstance(cmd, Command):
+            return
+        is_leader = self.role == LEADER
+        if cmd.kind == USR:
+            meta = {
+                "index": entry.index,
+                "term": entry.term,
+                "machine_version": self.effective_machine_version,
+                "reply_mode": cmd.reply_mode,
+            }
+            mac = self.machine.which_module(self.effective_machine_version)
+            state, reply, mac_effects = normalize_apply_result(
+                mac.apply(meta, cmd.data, self.machine_state)
+            )
+            self.machine_state = state
+            lat = self._lat
+            if lat is not None and entry.index == lat[0] and lat[4]:
+                lat[5] = time.monotonic_ns()
+                self._commit_h["commit_apply"].record(lat[5] - lat[4])
+            mac_effects = self._realise_log_effects(entry, mac_effects)
+            if not discard:
+                # Client replies/notifications and most machine side
+                # effects are issued by the leader only; followers keep
+                # local-option sends (reference: effect filtering in
+                # ra_server_proc, "local" send_msg option).
+                if is_leader:
+                    effects.extend(mac_effects)
+                    self._reply_applied(entry, cmd, reply, effects, notify)
+                else:
+                    # try_append runs in any raft state (reference:
+                    # src/ra_server_proc.erl:1610-1615); local-option
+                    # sends are evaluated wherever the local member is
+                    effects.extend(
+                        e for e in mac_effects
+                        if (isinstance(e, SendMsg) and "local" in e.options)
+                        or isinstance(e, TryAppend)
+                    )
+        elif cmd.kind == NOOP:
+            if cmd.machine_version > self.effective_machine_version:
+                old_v = self.effective_machine_version
+                self.effective_machine_version = cmd.machine_version
+                mac = self.machine.which_module(cmd.machine_version)
+                meta = {
+                    "index": entry.index,
+                    "term": entry.term,
+                    "machine_version": cmd.machine_version,
+                }
+                state, _reply, mac_effects = normalize_apply_result(
+                    mac.apply(meta, ("machine_version", old_v, cmd.machine_version),
+                              self.machine_state)
+                )
+                self.machine_state = state
+                if not discard and is_leader:
+                    effects.extend(mac_effects)
+            if not discard and is_leader:
+                self._reply_applied(entry, cmd, None, effects, notify)
+        elif cmd.kind in (RA_JOIN, RA_LEAVE, RA_CLUSTER_CHANGE):
+            if not discard and is_leader:
+                self._reply_applied(entry, cmd, None, effects, notify)
+                ps = self.cluster.get(self.id)
+                if (
+                    self.role == LEADER
+                    and ps is not None
+                    and ps.voter_status is None
+                ):
+                    # our own removal committed: relinquish leadership
+                    # AND stop — the proc-down broadcast is what tells
+                    # the remaining members to elect (reference:
+                    # leader_is_removed returns {stop,...},
+                    # test/ra_server_SUITE.erl:2121-2142)
+                    self._become_follower(effects)
+                    effects.append(StopEffect())
+
+    def _realise_log_effects(self, entry: Entry, mac_effects: List[Effect]) -> List[Effect]:
+        """Machines steer snapshotting via release_cursor / checkpoint
+        effects; the core realises those against its own log (reference:
+        update_release_cursor src/ra_server.erl:2455-2479) and passes the
+        rest through to the runtime."""
+        out: List[Effect] = []
+        for eff in mac_effects:
+            if isinstance(eff, ReleaseCursor):
+                conds = tuple(getattr(eff, "conditions", ()) or ())
+                if conds and not self._release_cursor_conditions_met(conds):
+                    # stash until the conditions hold (reference:
+                    # update_release_cursor_with_written_condition /
+                    # _no_snapshot_sends_condition)
+                    self.pending_release_cursor = (
+                        eff.index, eff.machine_state, conds
+                    )
+                    continue
+                self._do_release_cursor(eff.index, eff.machine_state)
+            elif isinstance(eff, Checkpoint):
+                mac = self.machine.which_module(self.effective_machine_version)
+                self.log.checkpoint(
+                    eff.index,
+                    tuple(self.members()),
+                    self.effective_machine_version,
+                    eff.machine_state,
+                    live_indexes=tuple(mac.live_indexes(eff.machine_state)),
+                )
+                self._c("checkpoints_written")
+            else:
+                out.append(eff)
+        return out
+
+    def _do_release_cursor(self, index: int, machine_state: Any) -> None:
+        mac = self.machine.which_module(self.effective_machine_version)
+        self.log.update_release_cursor(
+            index,
+            tuple(self.members()),
+            self.effective_machine_version,
+            machine_state,
+            live_indexes=tuple(mac.live_indexes(machine_state)),
+        )
+        self._c("releases")
+
+    def _release_cursor_conditions_met(self, conds: Tuple[Any, ...]) -> bool:
+        for c in conds:
+            if c == "no_snapshot_sends":
+                if any(
+                    status_kind(p.status) == "sending_snapshot"
+                    for p in self.cluster.values()
+                ):
+                    return False
+            elif isinstance(c, tuple) and c and c[0] == "written":
+                if self.log.last_written()[0] < c[1]:
+                    return False
+        return True
+
+    def _maybe_emit_pending_release_cursor(self) -> None:
+        pend = self.pending_release_cursor
+        if pend is not None and self._release_cursor_conditions_met(pend[2]):
+            self.pending_release_cursor = None
+            self._do_release_cursor(pend[0], pend[1])
+
+    def _reply_applied(
+        self,
+        entry: Entry,
+        cmd: Command,
+        reply: Any,
+        effects: EffectList,
+        notify: Dict[Any, List[Any]],
+    ) -> None:
+        mode = cmd.reply_mode
+        if mode == "await_consensus":
+            # pop unconditionally: the table must not leak one future per
+            # command on the normal in-memory-entry path
+            from_ref = self.pending_replies.pop(entry.index, None) or cmd.from_ref
+            if from_ref is not None:
+                effects.append(Reply(from_ref, ("ok", reply, self.id)))
+        elif isinstance(mode, tuple) and mode and mode[0] == "notify":
+            _, corr, who = mode
+            notify.setdefault(who, []).append((corr, reply))
+        lat = self._lat
+        if lat is not None and entry.index == lat[0] and lat[5]:
+            # reply stage closes at reply/notify emission (the proc
+            # executes the effect immediately after this handler)
+            self._commit_h["apply_reply"].record(
+                time.monotonic_ns() - lat[5]
+            )
+            self._lat = None
+
+    # ------------------------------------------------------------------
+    # follower
+
+    def _handle_follower(self, msg: Any, from_peer: Optional[ServerId]) -> EffectList:
+        effects: EffectList = []
+        if isinstance(msg, AppendEntriesRpc):
+            return self._follower_aer(msg, from_peer, effects)
+        if isinstance(msg, RequestVoteRpc):
+            return self._follower_request_vote(msg, from_peer, effects)
+        if isinstance(msg, PreVoteRpc):
+            return self._process_pre_vote(msg, from_peer, effects)
+        if isinstance(msg, InstallSnapshotRpc):
+            return self._follower_install_snapshot(msg, from_peer, effects)
+        if isinstance(msg, HeartbeatRpc):
+            if msg.term >= self.current_term:
+                self._update_term(msg.term)
+                self.leader_id = msg.leader_id
+                if self.cfg.lease:
+                    self._leader_contact = self._clock.monotonic()
+                effects.append(
+                    SendRpc(from_peer, HeartbeatReply(self.current_term, msg.query_index))
+                )
+            else:
+                effects.append(
+                    SendRpc(from_peer, HeartbeatReply(self.current_term, 0))
+                )
+            return effects
+        if isinstance(msg, LogEvent):
+            self.log.handle_event(msg.evt)
+            self._maybe_emit_pending_release_cursor()  # ("written", idx)
+            self._follower_send_written_reply(effects)
+            self._apply_to(self.commit_index, effects=effects)
+            return effects
+        if isinstance(msg, ElectionTimeout):
+            return self._call_for_election_or_pre_vote(effects)
+        if isinstance(msg, TimeoutNow):
+            if self.is_voter_self():
+                self._c("force_elections")
+                # transfer-driven candidacy: votes carry force=True so
+                # peers skip stickiness (the transferring leader
+                # revoked its lease before sending TimeoutNow)
+                self._forced_candidacy = True
+                self._call_for_election(effects)
+            return effects
+        if isinstance(msg, Tick):
+            self.meta.store(self.cfg.uid, "last_applied", self.last_applied)
+            effects.extend(self.machine.tick(msg.now_ms, self.machine_state))
+            return effects
+        if isinstance(msg, Command):
+            if msg.from_ref is not None:
+                effects.append(Reply(msg.from_ref, ("redirect", self.leader_id)))
+            return effects
+        if isinstance(msg, (RequestVoteResult, PreVoteResult, AppendEntriesReply)):
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+            return effects
+        if isinstance(msg, NodeEvent):
+            return effects
+        if isinstance(msg, tuple) and msg and msg[0] == "aux":
+            _, aux_kind, cmd, from_ref = msg
+            return self._handle_aux(aux_kind, cmd, from_ref, effects)
+        return effects
+
+    def _follower_aer(
+        self, msg: AppendEntriesRpc, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        self._c("aer_received")
+        snap = self.log.snapshot_index_term()
+        snap_idx = snap[0] if snap else 0
+        local_prev_term = self.log.fetch_term(msg.prev_log_index)
+        code = dec.aer_decision(
+            self.current_term,
+            msg.term,
+            msg.prev_log_index,
+            msg.prev_log_term,
+            -1 if local_prev_term is None else local_prev_term,
+            snap_idx,
+        )
+        li, lt = self.log.last_index_term()
+        if code == dec.AER_STALE:
+            effects.append(
+                SendRpc(
+                    from_peer,
+                    AppendEntriesReply(self.current_term, False, li + 1, li, lt),
+                )
+            )
+            return effects
+        self._update_term(msg.term)
+        if self.cfg.lease:
+            # stickiness stamp: any same-or-higher-term AER is leader
+            # contact (the stale case returned above)
+            self._leader_contact = self._clock.monotonic()
+            if msg.commit_ts > self._fresh_anchor[1]:
+                # freshness anchor: at leader wall time commit_ts the
+                # commit index was >= leader_commit; the local floor
+                # advances once apply catches up (read_staleness_s)
+                if self.last_applied >= msg.leader_commit:
+                    self._fresh_ts = max(self._fresh_ts, msg.commit_ts)
+                else:
+                    self._fresh_anchor = (msg.leader_commit, msg.commit_ts)
+        if self.leader_id != msg.leader_id:
+            self.leader_id = msg.leader_id
+            # acks to a NEW leader may only cover what it has confirmed
+            self._leader_cover = 0
+            effects.append(
+                RecordLeader(self.cfg.cluster_name, self.leader_id, tuple(self.members()))
+            )
+        if code in (dec.AER_MISMATCH, dec.AER_BEHIND_SNAPSHOT):
+            self._c("aer_replies_failed")
+            nid = dec.aer_failure_next_index(self.commit_index, li, msg.prev_log_index, snap_idx)
+            reply = SendRpc(
+                from_peer,
+                AppendEntriesReply(self.current_term, False, nid, li, lt),
+            )
+            effects.append(reply)
+            # hold in await_condition while the requested resend is in
+            # flight: repeated failing AERs must not trigger one rewind
+            # each (reference: follower_catchup_cond,
+            # src/ra_server.erl:1390-1428, 2196-2231). The failure reply
+            # above still goes out now; the condition timeout repeats it.
+            reason = "missing" if local_prev_term is None else "term_mismatch"
+            self.await_condition(
+                Condition(
+                    predicate=_follower_catchup_cond(reason),
+                    timeout_effects=(reply,),
+                ),
+                effects,
+            )
+            return effects
+        # AER_OK: drop already-matching entries, truncate on divergence,
+        # write the rest (reference: drop_existing src/ra_server.erl:3700)
+        to_write: List[Entry] = []
+        for e in msg.entries:
+            if e.index <= li:
+                our_term = self.log.fetch_term(e.index)
+                if our_term == e.term:
+                    continue  # duplicate
+                to_write = [x for x in msg.entries if x.index >= e.index]
+                break
+            to_write.append(e)
+        last_entry_idx = msg.entries[-1].index if msg.entries else msg.prev_log_index
+        if to_write:
+            if to_write[0].index <= li:
+                # overwriting a divergent suffix: an uncommitted cluster
+                # change adopted from that suffix must be rolled back
+                # before the replacement entries are scanned (reference:
+                # follower_cluster_change_overwrite_updates_membership;
+                # one-at-a-time changes mean depth-1 history suffices —
+                # committed changes can never be overwritten)
+                ci = self.cluster_index_term[0]
+                if ci >= to_write[0].index and self.previous_cluster is not None:
+                    pidx, pterm, pcluster = self.previous_cluster
+                    if pidx < to_write[0].index:
+                        self._set_cluster(pcluster, pidx, pterm)
+                        self.previous_cluster = None
+            self.log.write(to_write)
+            li, lt = self.log.last_index_term()
+        self.commit_index = max(self.commit_index, min(msg.leader_commit, last_entry_idx))
+        # Reply only with the durable watermark, anchored to what THIS
+        # AER covered: a new leader with a shorter log must not receive
+        # an ack above its own prev (reference follower_aer_5/6 — reply
+        # next_index = prev+n+1 even when our tail is longer). Deferred
+        # until the written event when writes are pending
+        # (src/ra_server.erl:1457-1474 — replies carry fsynced indexes).
+        self._leader_cover = max(getattr(self, "_leader_cover", 0), last_entry_idx)
+        wi, wt = self.log.last_written()
+        if wi >= last_entry_idx or not to_write:
+            ack = min(wi, last_entry_idx)
+            at = self.log.fetch_term(ack)
+            self._c("aer_replies_success")
+            effects.append(
+                SendRpc(
+                    from_peer,
+                    AppendEntriesReply(
+                        self.current_term, True, ack + 1, ack,
+                        at if at is not None else wt,
+                    ),
+                )
+            )
+        # cluster changes take effect at append time
+        for e in to_write:
+            if isinstance(e.cmd, Command) and e.cmd.kind in (RA_JOIN, RA_LEAVE, RA_CLUSTER_CHANGE):
+                self._apply_cluster_entry(e)
+        self._apply_to(self.commit_index, effects=effects)
+        return effects
+
+    def _apply_cluster_entry(self, entry: Entry) -> None:
+        cmd = entry.cmd
+        new_cluster = {sid: dataclasses.replace(p) for sid, p in self.cluster.items()}
+        if cmd.kind == RA_JOIN:
+            member, voter = cmd.data
+            if member not in new_cluster:
+                ps = PeerState()
+                if not voter:
+                    ps.voter_status = ("nonvoter", entry.index)
+                new_cluster[member] = ps
+        elif cmd.kind == RA_LEAVE:
+            new_cluster.pop(cmd.data, None)
+        elif (
+            isinstance(cmd.data, tuple) and cmd.data and cmd.data[0] == "replace"
+        ):
+            # full-cluster replacement (force_shrink recovery marker)
+            new_cluster = {
+                member: PeerState(voter_status=vs) for member, vs in cmd.data[1]
+            }
+        else:
+            for member, voter_status in cmd.data:
+                if member in new_cluster:
+                    new_cluster[member].voter_status = voter_status
+        self.previous_cluster = (
+            self.cluster_index_term[0],
+            self.cluster_index_term[1],
+            self.cluster,
+        )
+        self._set_cluster(new_cluster, entry.index, entry.term)
+
+    def _follower_send_written_reply(self, effects: EffectList) -> None:
+        if self.leader_id is None or self.leader_id == self.id:
+            return
+        # anchor to what the CURRENT leader has confirmed holding: a
+        # durable tail inherited from a previous leader must not inflate
+        # the new leader's match_index past its own log
+        cover = getattr(self, "_leader_cover", 0)
+        if cover <= 0:
+            return
+        wi, wt = self.log.last_written()
+        ack = min(wi, cover)
+        at = self.log.fetch_term(ack)
+        self._c("aer_replies_success")
+        effects.append(
+            SendRpc(
+                self.leader_id,
+                AppendEntriesReply(
+                    self.current_term, True, ack + 1, ack,
+                    at if at is not None else wt,
+                ),
+            )
+        )
+
+    def _follower_request_vote(
+        self, msg: RequestVoteRpc, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        if (
+            self.cfg.lease
+            and not msg.force
+            and msg.candidate_id != self.leader_id
+            and not self._stickiness_lapsed()
+        ):
+            # leader stickiness (§20 / Raft §9.6): within one election
+            # timeout of leader contact the RPC is DISREGARDED entirely
+            # — answering false at OUR term is fine, but adopting the
+            # higher term would depose the live leader through the term
+            # echo. Forced votes (leadership transfer / force_shrink —
+            # the old leader revoked its lease first) bypass.
+            effects.append(
+                SendRpc(from_peer, RequestVoteResult(self.current_term, False))
+            )
+            return effects
+        li, lt = self.log.last_index_term()
+        voted_slot = -1
+        if self.voted_for is not None and msg.term == self.current_term:
+            voted_slot = 0 if self.voted_for == msg.candidate_id else 1
+        grant, new_term = dec.vote_decision(
+            self.current_term,
+            voted_slot if voted_slot >= 0 else -1,
+            0,
+            msg.term,
+            msg.last_log_index,
+            msg.last_log_term,
+            li,
+            lt,
+        )
+        if new_term > self.current_term:
+            self.current_term = new_term
+            self.voted_for = None
+        if grant:
+            self.voted_for = msg.candidate_id
+            self.leader_id = None
+        if new_term != self.meta.fetch(self.cfg.uid, "current_term", 0) or grant:
+            self._persist_term_vote()
+        effects.append(SendRpc(from_peer, RequestVoteResult(self.current_term, grant)))
+        return effects
+
+    def _follower_install_snapshot(
+        self, msg: InstallSnapshotRpc, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        if msg.term < self.current_term:
+            li, lt = self.log.last_index_term()
+            effects.append(
+                SendRpc(from_peer, InstallSnapshotResult(self.current_term, li, lt))
+            )
+            return effects
+        if msg.meta.machine_version > self.machine.version():
+            # this member cannot interpret state from a machine version
+            # it does not have: ignore the transfer until the operator
+            # upgrades the module (reference:
+            # follower_ignores_installs_snapshot_with_higher_machine_version,
+            # test/ra_server_SUITE.erl)
+            return effects
+        self._update_term(msg.term)
+        self.leader_id = msg.leader_id
+        if self.cfg.lease:
+            self._leader_contact = self._clock.monotonic()
+        self._snap_accept = {
+            "meta": msg.meta,
+            "chunks": [],
+            "next_chunk": 0,
+            "from": from_peer,
+        }
+        self._become(RECEIVE_SNAPSHOT, effects)
+        effects.append(NextEvent(FromPeer(from_peer, msg)))
+        return effects
+
+    def _process_pre_vote(
+        self, msg: PreVoteRpc, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        """Pre-vote grant, identical in every role (reference keeps one
+        process_pre_vote for all roles too: src/ra_server.erl:2926-2984).
+        Pre-vote is non-disruptive: no term change, no abdication — a
+        genuinely ahead candidate dethrones us with its request_vote."""
+        # free capability discovery: the rpc carries the candidate's
+        # supported machine version
+        peer = self.cluster.get(from_peer)
+        if peer is not None:
+            peer.machine_version = max(peer.machine_version or 0, msg.machine_version)
+        li, lt = self.log.last_index_term()
+        granted = dec.pre_vote_decision(
+            self.current_term,
+            msg.term,
+            msg.machine_version,
+            self.effective_machine_version,
+            msg.last_log_index,
+            msg.last_log_term,
+            li,
+            lt,
+        )
+        if (
+            granted
+            and self.cfg.lease
+            and msg.candidate_id != self.leader_id
+            and not self._stickiness_lapsed()
+        ):
+            # leader stickiness (§20): within one election timeout of
+            # leader contact this voter refuses to help elect a
+            # replacement — the promise the leader's lease is bound by
+            granted = False
+        effects.append(
+            SendRpc(from_peer, PreVoteResult(self.current_term, msg.token, granted))
+        )
+        return effects
+
+    def _call_for_election_or_pre_vote(self, effects: EffectList) -> EffectList:
+        if not self.is_voter_self():
+            return effects  # nonvoters never start elections
+        if self.cfg.lease and not self._stickiness_lapsed():
+            # stickiness also gates STANDING: a candidate grants itself,
+            # so an early or injected timeout must not let it complete
+            # a (pre-)vote quorum inside some leader's lease window —
+            # the candidate could be the one intersection voter the
+            # safety argument counts on. TimeoutNow bypasses via
+            # _call_for_election directly.
+            return effects
+        if self.cfg.pre_vote:
+            return self._call_for_pre_vote(effects)
+        return self._call_for_election(effects)
+
+    def _call_for_pre_vote(self, effects: EffectList) -> EffectList:
+        self._c("pre_vote_elections")
+        self.pre_vote_token = self._new_token()
+        self.pre_votes = {self.id}
+        self.leader_id = None
+        self._become(PRE_VOTE, effects)
+        if len(self.voters()) == 1 and self.is_voter_self():
+            return self._call_for_election(effects)
+        li, lt = self.log.last_index_term()
+        rpc = PreVoteRpc(
+            term=self.current_term,
+            token=self.pre_vote_token,
+            candidate_id=self.id,
+            version=PROTO_VERSION,
+            machine_version=self.machine_version,
+            last_log_index=li,
+            last_log_term=lt,
+        )
+        reqs = tuple(
+            (sid, rpc) for sid, p in self.peers().items() if p.is_voter()
+        )
+        effects.append(SendVoteRequests(reqs))
+        return effects
+
+    def _call_for_election(self, effects: EffectList) -> EffectList:
+        self._c("elections")
+        self._obs_rec.record(
+            "election", node=self.id[1], group=self.id[0],
+            term=self.current_term + 1, detail="candidate round started",
+        )
+        self.current_term += 1
+        self.voted_for = self.id
+        self._persist_term_vote()
+        self.votes = {self.id}
+        self.leader_id = None
+        self._become(CANDIDATE, effects)
+        if len(self.voters()) == 1 and self.is_voter_self():
+            self._become_leader(effects)
+            return effects
+        li, lt = self.log.last_index_term()
+        rpc = RequestVoteRpc(
+            term=self.current_term, candidate_id=self.id, last_log_index=li,
+            last_log_term=lt, force=self._forced_candidacy,
+        )
+        reqs = tuple((sid, rpc) for sid, p in self.peers().items() if p.is_voter())
+        effects.append(SendVoteRequests(reqs))
+        return effects
+
+    # ------------------------------------------------------------------
+    # pre_vote role
+
+    def _handle_pre_vote(self, msg: Any, from_peer: Optional[ServerId]) -> EffectList:
+        effects: EffectList = []
+        if isinstance(msg, PreVoteResult):
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects)
+                return effects
+            if msg.token != self.pre_vote_token or not msg.vote_granted:
+                return effects
+            if from_peer is not None:
+                self.pre_votes.add(from_peer)
+            if len(self.pre_votes) >= self.required_quorum():
+                self._call_for_election(effects)
+            return effects
+        if isinstance(msg, AppendEntriesRpc):
+            if msg.term >= self.current_term:
+                self._become_follower(effects, leader=msg.leader_id)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+            else:
+                li, lt = self.log.last_index_term()
+                effects.append(
+                    SendRpc(
+                        from_peer,
+                        AppendEntriesReply(self.current_term, False, li + 1, li, lt),
+                    )
+                )
+            return effects
+        if isinstance(msg, (RequestVoteRpc, InstallSnapshotRpc)):
+            self._become_follower(effects)
+            effects.append(NextEvent(FromPeer(from_peer, msg)))
+            return effects
+        if isinstance(msg, PreVoteRpc):
+            return self._process_pre_vote(msg, from_peer, effects)
+        if isinstance(msg, HeartbeatRpc):
+            return self._nonfollower_heartbeat(msg, from_peer, effects)
+        if isinstance(msg, ElectionTimeout):
+            return self._call_for_pre_vote(effects)
+        if isinstance(msg, LogEvent):
+            self.log.handle_event(msg.evt)
+            return effects
+        if isinstance(msg, Command):
+            if msg.from_ref is not None:
+                effects.append(Reply(msg.from_ref, ("redirect", self.leader_id)))
+            return effects
+        return effects
+
+    # ------------------------------------------------------------------
+    # candidate role
+
+    def _handle_candidate(self, msg: Any, from_peer: Optional[ServerId]) -> EffectList:
+        effects: EffectList = []
+        if isinstance(msg, RequestVoteResult):
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects)
+                return effects
+            if msg.term < self.current_term or not msg.vote_granted:
+                return effects
+            if from_peer is not None:
+                self.votes.add(from_peer)
+            if len(self.votes) >= self.required_quorum():
+                self._become_leader(effects)
+            return effects
+        if isinstance(msg, AppendEntriesRpc):
+            if msg.term >= self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects, leader=msg.leader_id)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+            else:
+                li, lt = self.log.last_index_term()
+                effects.append(
+                    SendRpc(
+                        from_peer,
+                        AppendEntriesReply(self.current_term, False, li + 1, li, lt),
+                    )
+                )
+            return effects
+        if isinstance(msg, RequestVoteRpc):
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._become_follower(effects)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+            else:
+                effects.append(SendRpc(from_peer, RequestVoteResult(self.current_term, False)))
+            return effects
+        if isinstance(msg, PreVoteRpc):
+            return self._process_pre_vote(msg, from_peer, effects)
+        if isinstance(msg, InstallSnapshotRpc):
+            if msg.term >= self.current_term:
+                # a leader exists and we are behind its snapshot: step
+                # down and take the transfer as a follower
+                self._update_term(msg.term)
+                self._become_follower(effects, leader=msg.leader_id)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+            else:
+                li, lt = self.log.last_index_term()
+                effects.append(
+                    SendRpc(from_peer, InstallSnapshotResult(self.current_term, li, lt))
+                )
+            return effects
+        if isinstance(msg, HeartbeatRpc):
+            return self._nonfollower_heartbeat(msg, from_peer, effects)
+        if isinstance(msg, ElectionTimeout):
+            return self._call_for_election(effects)
+        if isinstance(msg, LogEvent):
+            self.log.handle_event(msg.evt)
+            return effects
+        if isinstance(msg, Command):
+            if msg.from_ref is not None:
+                effects.append(Reply(msg.from_ref, ("redirect", self.leader_id)))
+            return effects
+        return effects
+
+    def _nonfollower_heartbeat(
+        self, msg: HeartbeatRpc, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        """Heartbeats reaching a pre-vote/candidate server: a current-or-
+        higher term proves an elected leader (revert and re-dispatch); a
+        stale one gets our term back so the deposed leader steps down
+        (reference: pre_vote_heartbeat / candidate_heartbeat)."""
+        if msg.term >= self.current_term:
+            self._update_term(msg.term)
+            self._become_follower(effects, leader=msg.leader_id)
+            effects.append(NextEvent(FromPeer(from_peer, msg)))
+        else:
+            effects.append(
+                SendRpc(from_peer, HeartbeatReply(self.current_term, 0))
+            )
+        return effects
+
+    # ------------------------------------------------------------------
+    # receive_snapshot role
+
+    def _snap_ack(self, chunk_no: int) -> InstallSnapshotAck:
+        """Chunk ack with receiver-paced credits (docs/INTERNALS.md
+        §21): how many further chunks this receiver will accept. A
+        storage-blocked receiver grants 0 — the sender parks instead of
+        spooling chunks onto a disk that cannot hold them."""
+        pressure = self.cfg.pressure
+        window = max(1, self.cfg.snapshot_credit_window)
+        credits = (window if pressure is None
+                   else pressure.snapshot_credits(window))
+        if credits:
+            self._c("snapshot_credits_granted", credits)
+        else:
+            self._c("snapshot_credit_waits")
+        self._g("snapshot_credit_window", credits)
+        return InstallSnapshotAck(self.current_term, chunk_no, credits)
+
+    def _handle_receive_snapshot(self, msg: Any, from_peer: Optional[ServerId]) -> EffectList:
+        """Four-phase chunked snapshot install: init -> pre (sparse live
+        entries) -> next* -> last (reference: handle_receive_snapshot
+        src/ra_server.erl:1659-1807)."""
+        effects: EffectList = []
+        if isinstance(msg, InstallSnapshotRpc):
+            if msg.term < self.current_term:
+                li, lt = self.log.last_index_term()
+                effects.append(
+                    SendRpc(from_peer, InstallSnapshotResult(self.current_term, li, lt))
+                )
+                return effects
+            if msg.chunk_phase == CHUNK_INIT:
+                # INIT always starts a fresh accumulator — a retried
+                # transfer at the same index must not extend stale
+                # chunks. Chunk bodies spool straight to disk when the
+                # log's snapshot store supports it (reference:
+                # begin_accept, src/ra_snapshot.erl:742-860); "accept"
+                # is None on memory-backed logs (in-RAM fallback).
+                self._abort_snap_accept()
+                self._snap_accept = {
+                    "meta": msg.meta, "chunks": [], "next_chunk": 1,
+                    "from": from_peer,
+                    "accept": self.log.begin_accept_snapshot(msg.meta),
+                }
+                effects.append(
+                    SendRpc(from_peer, self._snap_ack(msg.chunk_no))
+                )
+                return effects
+            acc = self._snap_accept
+            if acc is None or acc["meta"].index != msg.meta.index:
+                return effects  # no transfer in progress for this snapshot
+            if msg.chunk_phase == CHUNK_PRE:
+                # sparse live entries preceding the snapshot body; writes
+                # are idempotent so pre chunks just advance the cursor
+                acc["next_chunk"] = max(acc["next_chunk"], msg.chunk_no + 1)
+                entries = msg.data
+                for e in entries:
+                    if self.log.fetch_term(e.index) is None:
+                        self.log.write_sparse(e)
+                effects.append(
+                    SendRpc(from_peer, self._snap_ack(msg.chunk_no))
+                )
+                return effects
+            # next / last: validate chunk ordering — duplicates (sender
+            # retry after a lost ack) are re-acked without appending;
+            # future chunks are ignored so the sender retries in order
+            if msg.chunk_no < acc["next_chunk"]:
+                effects.append(
+                    SendRpc(from_peer, self._snap_ack(msg.chunk_no))
+                )
+                return effects
+            if msg.chunk_no > acc["next_chunk"]:
+                return effects
+            a = acc.get("accept")
+            if a is not None and isinstance(msg.data, (bytes, bytearray)):
+                a.accept_chunk(msg.data)  # straight to the disk spool
+            else:
+                if a is not None:
+                    # a non-byte chunk (in-proc direct-object transfer)
+                    # cannot spool to disk: fall back to in-RAM — always
+                    # the transfer's first chunk, so nothing is lost
+                    a.abort()
+                    acc["accept"] = None
+                acc["chunks"].append(msg.data)
+            acc["next_chunk"] += 1
+            if msg.chunk_phase == CHUNK_LAST:
+                return self._complete_snapshot(msg, from_peer, effects)
+            effects.append(
+                SendRpc(from_peer, self._snap_ack(msg.chunk_no))
+            )
+            return effects
+        if isinstance(msg, ElectionTimeout):
+            self._abort_snap_accept()
+            self._become_follower(effects)
+            return effects
+        if isinstance(msg, AppendEntriesRpc) and msg.term >= self.current_term:
+            # leader moved on; abandon the transfer
+            self._update_term(msg.term)
+            self._abort_snap_accept()
+            self._become_follower(effects, leader=msg.leader_id)
+            effects.append(NextEvent(FromPeer(from_peer, msg)))
+            return effects
+        if isinstance(msg, RequestVoteRpc):
+            # a higher-term election aborts the transfer (reference:
+            # receive_snapshot_request_vote_higher_term); stale votes
+            # must not (reference: ..._lower_term)
+            if msg.term > self.current_term:
+                self._update_term(msg.term)
+                self._abort_snap_accept()
+                self._become_follower(effects)
+                effects.append(NextEvent(FromPeer(from_peer, msg)))
+            return effects
+        if isinstance(msg, LogEvent):
+            self.log.handle_event(msg.evt)
+            return effects
+        if isinstance(msg, Command):
+            if msg.from_ref is not None:
+                effects.append(Reply(msg.from_ref, ("redirect", self.leader_id)))
+            return effects
+        return effects
+
+    def _abort_snap_accept(self) -> None:
+        """Drop an in-progress transfer, cleaning any disk spool."""
+        acc = self._snap_accept
+        self._snap_accept = None
+        if acc is not None:
+            a = acc.get("accept")
+            if a is not None and not a.done:
+                a.abort()
+
+    def _complete_snapshot(
+        self, msg: InstallSnapshotRpc, from_peer: Optional[ServerId], effects: EffectList
+    ) -> EffectList:
+        acc = self._snap_accept
+        assert acc is not None
+        old_meta = self.log.snapshot_meta()
+        old_state = self.machine_state
+        a = acc.get("accept")
+        if a is not None:
+            # disk-spooled accept: seal + streaming-decode + promote in
+            # one step (the capture directory IS the new snapshot — no
+            # second serialization of the state)
+            machine_state = self.log.complete_accept_snapshot(a)
+        else:
+            machine_state = self._decode_snapshot(acc["chunks"])
+            self.log.install_snapshot(msg.meta, machine_state)
+        self.machine_state = machine_state
+        self.effective_machine_version = msg.meta.machine_version
+        self._obs_rec.record(
+            "snapshot_install", node=self.id[1], group=self.id[0],
+            term=self.current_term,
+            detail=f"installed at index {msg.meta.index} "
+                   f"(term {msg.meta.term})",
+        )
+        self.commit_index = max(self.commit_index, msg.meta.index)
+        self.last_applied = max(self.last_applied, msg.meta.index)
+        self._set_cluster(
+            {sid: PeerState() for sid in msg.meta.cluster}, msg.meta.index, msg.meta.term
+        )
+        self._c("snapshot_installed")
+        self._g("snapshot_index", msg.meta.index)
+        effects.extend(
+            self.machine.snapshot_installed(msg.meta, machine_state, old_meta, old_state)
+        )
+        self._snap_accept = None
+        self._become_follower(effects, leader=msg.leader_id)
+        effects.append(
+            SendRpc(
+                from_peer,
+                InstallSnapshotResult(self.current_term, msg.meta.index, msg.meta.term),
+            )
+        )
+        return effects
+
+    @staticmethod
+    def _decode_snapshot(chunks: List[Any]) -> Any:
+        from ra_tpu_torch.log.snapshot import decode_snapshot_chunks
+
+        return decode_snapshot_chunks(chunks)
+
+    # ------------------------------------------------------------------
+    # await_condition role
+
+    def _handle_await_condition(self, msg: Any, from_peer: Optional[ServerId]) -> EffectList:
+        effects: EffectList = []
+        cond = self.condition
+        if isinstance(msg, RequestVoteRpc):
+            # an election is under way: leave the hold and process the
+            # vote as a follower (reference: src/ra_server.erl:1918)
+            self.condition = None
+            self._become_follower(effects)
+            effects.append(NextEvent(FromPeer(from_peer, msg) if from_peer else msg))
+            return effects
+        if isinstance(msg, PreVoteRpc):
+            # liveness: a waiting server must still answer pre-vote
+            # probes (reference: await_condition_receives_pre_vote)
+            return self._process_pre_vote(msg, from_peer, effects)
+        if isinstance(msg, ElectionTimeout):
+            # a held server still suspects dead leaders: full pre-vote
+            # round, NOT the condition's timeout path (reference:
+            # src/ra_server.erl:1922-1931; nonvoters never elect)
+            if not self.is_voter_self():
+                return effects
+            self.condition = None
+            return self._call_for_election_or_pre_vote(effects)
+        if isinstance(msg, ConditionTimeout):
+            if (
+                msg.generation is not None
+                and msg.generation != self.condition_generation
+            ):
+                return effects  # stale: armed for an earlier hold
+            self.condition = None
+            if cond is not None and cond.predicate(self, msg):
+                self._exit_condition(cond.transition_to, effects)
+                return effects
+            self._exit_condition(
+                cond.timeout_transition_to if cond else FOLLOWER, effects
+            )
+            if cond is not None:
+                effects.extend(cond.timeout_effects)
+            return effects
+        if cond is not None and cond.predicate(self, msg):
+            self.condition = None
+            self._exit_condition(cond.transition_to, effects)
+            effects.append(NextEvent(FromPeer(from_peer, msg) if from_peer else msg))
+            return effects
+        if (
+            isinstance(msg, (AppendEntriesRpc, InstallSnapshotRpc))
+            and msg.term > self.current_term
+        ):
+            # a higher-term leader is probing while we hold: adopt the
+            # term and (for AERs) answer with a prompt failure so the
+            # NEW leader rewinds next_index now, instead of hearing
+            # nothing until ConditionTimeout repeats a stale reply
+            # addressed to the old leader. The hold itself is kept —
+            # the condition (wal_up / catch-up resend) still gates what
+            # this server may accept.
+            self._update_term(msg.term)
+            if isinstance(msg, AppendEntriesRpc) and from_peer is not None:
+                self.leader_id = msg.leader_id
+                snap = self.log.snapshot_index_term()
+                li, lt = self.log.last_index_term()
+                nid = dec.aer_failure_next_index(
+                    self.commit_index, li, msg.prev_log_index,
+                    snap[0] if snap else 0,
+                )
+                effects.append(
+                    SendRpc(
+                        from_peer,
+                        AppendEntriesReply(self.current_term, False, nid, li, lt),
+                    )
+                )
+            return effects
+        if isinstance(msg, LogEvent):
+            self.log.handle_event(msg.evt)
+            self._maybe_emit_pending_release_cursor()  # ("written", idx)
+            return effects
+        if isinstance(msg, InstallSnapshotResult):
+            if msg.term > self.current_term:
+                # stale-term rejection: the cluster moved on while we
+                # held — step down now rather than resuming a stale
+                # leadership on the condition timeout
+                self._update_term(msg.term)
+                self.condition = None
+                self._become_follower(effects)
+                return effects
+            # a transfer that COMPLETES during a hold: record the
+            # peer's progress so a resumed leader pipelines from the
+            # snapshot index instead of finding a stranded status
+            peer = self.cluster.get(from_peer)
+            if peer is not None:
+                peer.status = "normal"
+                peer.match_index = max(peer.match_index, msg.last_index)
+                peer.next_index = max(peer.next_index, msg.last_index + 1)
+                self._maybe_emit_pending_release_cursor()
+            return effects
+        if isinstance(msg, tuple) and msg and msg[0] == "snapshot_sender_down":
+            # a transfer that dies during a hold must not strand the
+            # peer in sending status: reset so a resumed leader's
+            # pipeline re-engages (no retry timer while held)
+            peer = self.cluster.get(msg[1])
+            if peer is not None and status_kind(peer.status) in (
+                "sending_snapshot", "snapshot_backoff",
+            ):
+                peer.status = "normal"
+                self._maybe_emit_pending_release_cursor()
+            return effects
+        if isinstance(msg, tuple) and msg and msg[0] == "snapshot_retry_timeout":
+            peer = self.cluster.get(msg[1])
+            if peer is not None and status_kind(peer.status) == "snapshot_backoff":
+                peer.status = "normal"  # resumed leaders re-send directly
+            return effects
+        if isinstance(msg, Command) and msg.from_ref is not None:
+            # never strand a caller while held: redirect so the client
+            # retries against whatever leader emerges
+            effects.append(Reply(msg.from_ref, ("redirect", None)))
+            return effects
+        return effects
+
+    def _exit_condition(self, role: str, effects: EffectList) -> None:
+        if role == LEADER and getattr(self, "_hold_entry_term", None) not in (
+            None, self.current_term,
+        ):
+            # the term advanced while we held (a higher-term probe was
+            # adopted mid-hold): resuming leadership would be a stale-
+            # term leader — fall back to follower instead
+            role = FOLLOWER
+        if role == LEADER:
+            # returning to leadership after a hold (transfer timed out /
+            # WAL recovered) re-enters WITHOUT the fresh-election reset:
+            # peer bookkeeping, cluster_change_permitted, and the
+            # noop gate are retained, and no new noop is appended
+            # (reference: leader_enters_from_await_condition)
+            self._become(LEADER, effects)
+            self._pipeline(effects)
+        else:
+            self._become_follower(effects)
+
+    def await_condition(self, cond: Condition, effects: EffectList) -> None:
+        self.condition = cond
+        self.condition_generation += 1
+        # release-time guard: a hold that would resume leadership may
+        # only do so in the term it was entered (see _exit_condition)
+        self._hold_entry_term = self.current_term
+        self._become(AWAIT_CONDITION, effects)
+
+    def _on_wal_down(self) -> EffectList:
+        """The shared WAL failed. A leader that cannot persist must
+        abdicate (transfer to the most caught-up voter); every role then
+        holds in await_condition until the WAL is back, at which point
+        the re-injected wal_up event drives the unwritten-tail resend
+        (reference: src/ra_server.erl:653-693, 1918-1961)."""
+        effects: EffectList = []
+        if self.role == LEADER:
+            target = None
+            best = -1
+            for sid, p in self.peers().items():
+                if p.is_voter() and p.match_index > best:
+                    target, best = sid, p.match_index
+            if target is not None:
+                effects.append(SendRpc(target, TimeoutNow()))
+
+        def wal_is_up(_srv: "Server", m: Any) -> bool:
+            return (
+                isinstance(m, LogEvent)
+                and isinstance(m.evt, tuple)
+                and bool(m.evt)
+                and m.evt[0] == "wal_up"
+            )
+
+        # a leader whose WAL comes back in the SAME term resumes
+        # leadership directly (the abdication TimeoutNow may have been
+        # lost; a successful transfer shows up as a higher-term probe
+        # during the hold, and the _exit_condition term guard then
+        # forces follower). A hold that times out with the WAL still
+        # dead always falls back to follower.
+        self.await_condition(
+            Condition(
+                predicate=wal_is_up,
+                transition_to=LEADER if self.role == LEADER else FOLLOWER,
+            ),
+            effects,
+        )
+        return effects
+
+    # ------------------------------------------------------------------
+    # aux machine plumbing
+
+    def _handle_aux(self, kind: str, cmd: Any, from_ref: Any, effects: EffectList) -> EffectList:
+        from ra_tpu_torch.aux import AuxContext
+
+        if not hasattr(self, "aux_state"):
+            self.aux_state = self.machine.init_aux(self.cfg.cluster_name)
+        from ra_tpu_torch.machine import normalize_aux_result
+
+        res = self.machine.handle_aux(
+            self.role, kind, cmd, self.aux_state, AuxContext(self)
+        )
+        reply, self.aux_state, aux_effects = normalize_aux_result(res, self.aux_state)
+        if res is None:
+            return effects
+        effects.extend(aux_effects)
+        if kind == "call" and from_ref is not None:
+            effects.append(Reply(from_ref, ("ok", reply, self.id)))
+        return effects

@@ -1,0 +1,198 @@
+"""Named "systems": isolated instances of the whole stack.
+
+Capability parity with the reference's ``ra_system`` (reference:
+``src/ra_system.erl:32-62,162-183``): a system bundles a data directory,
+its own WAL / segment writer / meta store / registry, and a config map;
+multiple isolated systems can run in one process. Config has three tiers
+(reference: README.md:250-380):
+
+  1. process-global defaults (``default_config``),
+  2. per-system overrides (``SystemConfig``),
+  3. per-server config (``ra_tpu_torch.server.ServerConfig``), persisted with
+     the server and partially mutable on restart.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import threading
+from typing import Dict, Optional
+
+logger = logging.getLogger("ra_tpu_torch")
+
+DEFAULT_SYSTEM = "default"
+
+# Defaults mirror the reference's tuning constants (src/ra.hrl:214-228,
+# src/ra_server.hrl:7-9, src/ra_log.erl:65-67) — same knobs, same units.
+WAL_MAX_SIZE_BYTES = 256 * 1024 * 1024
+WAL_MAX_BATCH_SIZE = 8192
+SEGMENT_MAX_ENTRIES = 4096
+SEGMENT_MAX_SIZE_BYTES = 64 * 1024 * 1024
+SNAPSHOT_CHUNK_SIZE = 1024 * 1024
+MIN_SNAPSHOT_INTERVAL = 4096
+MIN_CHECKPOINT_INTERVAL = 16384
+DEFAULT_MAX_PIPELINE_COUNT = 4096
+DEFAULT_AER_BATCH_SIZE = 128
+RESEND_WINDOW_SECONDS = 20
+SNAPSHOT_INSTALL_TIMEOUT_S = 120
+
+
+@dataclasses.dataclass
+class Names:
+    """Well-known per-system component names (cf. ra_system:names/0)."""
+
+    system: str
+    wal: str
+    segment_writer: str
+    log_meta: str
+    directory: str
+    log_ets: str
+    sync_pool: str
+
+    @staticmethod
+    def derive(system: str) -> "Names":
+        p = f"ra_{system}"
+        return Names(
+            system=system,
+            wal=f"{p}_wal",
+            segment_writer=f"{p}_segment_writer",
+            log_meta=f"{p}_meta",
+            directory=f"{p}_directory",
+            log_ets=f"{p}_log_tables",
+            sync_pool=f"{p}_sync_pool",
+        )
+
+
+@dataclasses.dataclass
+class SystemConfig:
+    name: str = DEFAULT_SYSTEM
+    data_dir: str = ""
+    wal_max_size_bytes: int = WAL_MAX_SIZE_BYTES
+    wal_max_batch_size: int = WAL_MAX_BATCH_SIZE
+    wal_compute_checksums: bool = True
+    wal_sync_method: str = "datasync"  # datasync | sync | none
+    # adaptive group commit (docs/INTERNALS.md §15): hold a small flush
+    # open up to this bound while a burst is still arriving so it pays
+    # one fsync; 0 disables. The wait is only entered when the smoothed
+    # arrival rate predicts >= wal_group_commit_min_gain more entries
+    # inside the bound — an idle write never waits on a timer.
+    wal_group_commit_max_delay_s: float = 0.002
+    wal_group_commit_min_gain: int = 8
+    segment_max_entries: int = SEGMENT_MAX_ENTRIES
+    # "map": parse segment indexes on open (fastest lookups);
+    # "binary": binary-search raw slots + read-ahead (low memory for
+    # sparse reads over many segments; reference index modes,
+    # src/ra_log_segment.erl:55-59)
+    segment_index_mode: str = "map"
+    segment_max_size_bytes: int = SEGMENT_MAX_SIZE_BYTES
+    segment_compute_checksums: bool = True
+    snapshot_chunk_size: int = SNAPSHOT_CHUNK_SIZE
+    default_max_pipeline_count: int = DEFAULT_MAX_PIPELINE_COUNT
+    # client admission window (appended-but-unapplied backlog cap per
+    # group; see docs/INTERNALS.md §12 flow control)
+    default_max_command_backlog: int = DEFAULT_MAX_PIPELINE_COUNT
+    default_max_append_entries_rpc_batch_size: int = DEFAULT_AER_BATCH_SIZE
+    min_snapshot_interval: int = MIN_SNAPSHOT_INTERVAL
+    min_checkpoint_interval: int = MIN_CHECKPOINT_INTERVAL
+    resend_window_seconds: int = RESEND_WINDOW_SECONDS
+    snapshot_install_timeout_s: int = SNAPSHOT_INSTALL_TIMEOUT_S
+    # registered: restart every registered server on system start.
+    server_recovery_strategy: str = "none"  # none | registered
+    # log-infra supervision intensity (the OTP supervisor analog): more
+    # than ``infra_restart_intensity`` WAL/segment-writer restart
+    # episodes inside ``infra_restart_window_s`` seconds marks the
+    # node's storage infra DOWN — servers stay in await_condition and
+    # the operator must intervene (a disk that fails every few seconds
+    # is not healing; endless restarts would just churn)
+    infra_restart_intensity: int = 5
+    infra_restart_window_s: float = 10.0
+    # storage-pressure survival plane (docs/INTERNALS.md §21): byte
+    # watermarks over the node's data dir (WAL + segments + snapshots
+    # + accept spools). Soft triggers emergency reclamation (forced
+    # snapshots -> release cursors -> major compaction -> snapshot
+    # prunes) BEFORE ENOSPC fires; hard pre-empts client admission
+    # (typed RA_NOSPACE rejects). 0 = unlimited (watermarks off).
+    disk_soft_limit_bytes: int = 0
+    disk_hard_limit_bytes: int = 0
+    disk_check_interval_s: float = 1.0
+    # slow-disk brownout (li-smoothed mean WAL fsync latency, us):
+    # `streak` consecutive checks past enter sheds leaderships via
+    # transfer_leadership; the same streak under exit un-marks
+    brownout_enter_us: float = 200_000.0
+    brownout_exit_us: float = 50_000.0
+    brownout_streak: int = 3
+    # receiver-paced snapshot chunk credit window (flow-controlled
+    # snapshot streaming); receivers grant 0 while storage-blocked
+    snapshot_credit_window: int = 4
+    # all: bump machine version when leader supports it; quorum: when a
+    # quorum of members support it (reference: src/ra_server.erl:223-233).
+    machine_upgrade_strategy: str = "all"
+    # NOTE (async command plane, docs/INTERNALS.md §16): the tpu_batch
+    # command-plane knobs — lock-free ingress rings on/off, per-lane
+    # slot count, dedicated egress sender thread — are constructor
+    # kwargs of runtime.coordinator.BatchCoordinator (``rings``,
+    # ``ingress_ring_slots``, ``egress_async``), surfaced as
+    # ``bench.py --rings`` and ``kv_harness --rings``. They are NOT
+    # SystemConfig fields: nothing constructs a BatchCoordinator from
+    # a SystemConfig today, and a config field nothing reads would be
+    # a silent no-op trap for operators.
+    # Server execution backend: per_group_actor (scalar oracle path) or
+    # tpu_batch (batching coordinator with device-resident decision state).
+    server_impl: str = "per_group_actor"
+    names: Names = None  # type: ignore[assignment]
+
+    def __post_init__(self) -> None:
+        from ra_tpu_torch.utils.lib import validate_name
+
+        if not validate_name(self.name):
+            raise ValueError(f"invalid system name {self.name!r}")
+        if not self.data_dir:
+            self.data_dir = default_data_dir(self.name)
+        if self.names is None:
+            self.names = Names.derive(self.name)
+
+    def server_data_dir(self, uid: str) -> str:
+        return os.path.join(self.data_dir, uid)
+
+
+def default_data_dir(system: str = DEFAULT_SYSTEM) -> str:
+    base = os.environ.get("RA_TPU_DATA_DIR", os.path.join(os.getcwd(), "ra_data"))
+    return os.path.join(base, system)
+
+
+class _SystemRegistry:
+    """Running systems in this process (cf. persistent_term storage in the
+    reference, src/ra_system.erl:176-183)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._systems: Dict[str, object] = {}  # name -> runtime System object
+
+    def put(self, name: str, system: object) -> None:
+        with self._lock:
+            if name in self._systems:
+                raise RuntimeError(f"system {name!r} already running")
+            self._systems[name] = system
+
+    def get(self, name: str) -> Optional[object]:
+        return self._systems.get(name)
+
+    def pop(self, name: str) -> Optional[object]:
+        with self._lock:
+            return self._systems.pop(name, None)
+
+    def names(self):
+        return list(self._systems.keys())
+
+
+_registry = _SystemRegistry()
+
+
+def registry() -> _SystemRegistry:
+    return _registry
+
+
+def default_config(data_dir: Optional[str] = None) -> SystemConfig:
+    return SystemConfig(name=DEFAULT_SYSTEM, data_dir=data_dir or "")

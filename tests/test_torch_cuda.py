@@ -1,13 +1,16 @@
 """The port on a CUDA card: the quorum kernel against its plain version,
 the step kernels (full width and active set) against the plain torch-op
 step on the card and on the CPU over the edge inputs of
-``torch_step_cases``, and a small 3-coordinator cluster committing
-through the step kernels. Every test skips without a card (the kernels
+``torch_step_cases``, a small 3-coordinator cluster committing
+through the step kernels, and three started coordinators serving the
+client API (``ra_tpu_torch.api``) through them. Every test skips without a card (the kernels
 have no CPU mode). Run on a GPU machine from the repository root; the
 file imports no JAX, so it also runs where JAX is not installed:
 
     python3 -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -194,3 +197,72 @@ def test_three_coordinators_commit_through_the_kernel(dev):
     finally:
         for c in coords:
             c.stop()
+
+
+def test_api_drives_started_coordinators_through_the_kernel(dev, tmp_path):
+    """Three started coordinators (own step threads) on the card, with
+    WAL-backed logs and leases, serve ``ra_tpu_torch.api``: every reply
+    and consistent read is the group's sum, replicas agree, and the
+    step kernels launched while quorum.cu did not."""
+    import os
+
+    from ra_tpu_torch import api, leaderboard
+    from ra_tpu_torch.log.log import Log
+    from ra_tpu_torch.log.segment_writer import SegmentWriter
+    from ra_tpu_torch.log.tables import TableRegistry
+    from ra_tpu_torch.log.wal import Wal
+    from ra_tpu_torch.machine import SimpleMachine
+    from ra_tpu_torch.protocol import ElectionTimeout
+    from ra_tpu_torch.runtime.coordinator import BatchCoordinator
+
+    g_n = 48
+    names = [f"ca{i}" for i in range(3)]
+    leaderboard.clear()
+    coords = [BatchCoordinator(n, capacity=g_n, num_peers=3, device=dev,
+                               lease=True) for n in names]
+    storage = []
+    try:
+        for n, c in zip(names, coords):
+            d = str(tmp_path / n)
+            tables = TableRegistry()
+            sw = SegmentWriter(os.path.join(d, "data"), tables, c.wal_notify)
+            wal = Wal(os.path.join(d, "wal"), tables, c.wal_notify,
+                      segment_writer=sw)
+            wal.notify_many = c.wal_notify_many
+            storage.append((wal, sw))
+            c.add_groups([
+                (f"g{g}", f"cacl{g}", [(f"g{g}", m) for m in names],
+                 SimpleMachine(lambda cmd, s: s + cmd, 0),
+                 Log(f"g{g}", os.path.join(d, "data", f"g{g}"), tables, wal))
+                for g in range(g_n)
+            ])
+        launches = (S.LAUNCHES_FULL + S.LAUNCHES_SUB, Q.LAUNCHES)
+        for c in coords:
+            c.start()
+        coords[0].deliver_many(
+            [((f"g{g}", "ca0"), ElectionTimeout(), None) for g in range(g_n)])
+        for g in range(g_n):
+            sid = (f"g{g}", names[g % 3])
+            assert api.process_command(sid, g, timeout=30)[0] == g
+            assert api.process_command(sid, 1, timeout=30)[0] == g + 1
+            out = api.consistent_query((f"g{g}", names[(g + 1) % 3]),
+                                       lambda s: s, timeout=30)
+            assert out[:2] == ("ok", g + 1)
+        for g in range(g_n):
+            for n in names:
+                for _ in range(300):
+                    if api.local_query((f"g{g}", n), lambda s: s)[1] == g + 1:
+                        break
+                    time.sleep(0.02)
+                assert api.local_query((f"g{g}", n), lambda s: s)[1] == g + 1
+        for c in coords:
+            assert c.state.commit_index.device.type == "cuda"
+        assert S.LAUNCHES_FULL + S.LAUNCHES_SUB > launches[0]
+        assert Q.LAUNCHES == launches[1]
+    finally:
+        for c in reversed(coords):  # followers first, then the leader
+            c.stop()
+        for wal, sw in storage:
+            wal.close()
+            sw.close()
+        leaderboard.clear()

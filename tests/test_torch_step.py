@@ -65,6 +65,26 @@ def test_plain_steps_match_jax_on_the_edges(p, k, near_max):
     assert_state_equal(js, ts, "sub")
 
 
+def test_negative_self_slot_wraps_once_as_in_jax():
+    """A self slot of -1 reads member P-1, as JAX's take_along_axis
+    does. Where the port read True instead, the first difference here
+    was ``became_leader`` at group 37, a candidate with self slot -1
+    that JAX does not elect."""
+    rng = np.random.default_rng(20261017)
+    fields = cases.state_fields(rng, G, 3, 8, negative_slots=False)
+    fields["self_slot"][2::7] = -1
+    full = cases.packed(rng, fields, np.arange(G), G)
+    js, je = J.consensus_step_packed_scat(_jax_state(fields), jnp.asarray(full))
+    ts, te = T.consensus_step_packed_scat_plain(
+        T.state_from_numpy(fields, "cpu"), torch.from_numpy(full))
+    je = np.asarray(je)
+    assert fields["self_slot"][37] == -1 and fields["role"][37] == T.R_CANDIDATE
+    assert je[T.EGRESS_FIELDS.index("became_leader"), 37] == 0
+    for i, name in enumerate(T.EGRESS_FIELDS):
+        np.testing.assert_array_equal(je[i], te[i].numpy(), err_msg=name)
+    assert_state_equal(js, ts, "full")
+
+
 @pytest.mark.parametrize("near_max", [False, True])
 def test_edge_inputs_cover_the_hazards(near_max):
     """The inputs above really hold every edge the kernel must reproduce
@@ -76,7 +96,9 @@ def test_edge_inputs_cover_the_hazards(near_max):
         T.state_from_numpy(fields, "cpu"), torch.from_numpy(full))
     agreed = eg[T.EGRESS_FIELDS.index("agreed_idx")].numpy()
     assert (agreed == -1).any()  # groups with no voting member
-    assert (fields["self_slot"] >= p).any()
+    ss = fields["self_slot"]
+    assert (ss >= p).any() and (ss == -1).any() and (ss == -p).any()
+    assert (ss < -p).any()
     assert (full[R["sender_slot"]] >= p).any() and (full[R["sender_slot"]] < 0).any()
     for row in ("a_gid", "w_gid"):
         ids = full[R[row]]

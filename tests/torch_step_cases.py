@@ -3,8 +3,8 @@ card tests import no JAX): a consistent group state and packed mailboxes
 with the edges the step kernel must reproduce bit for bit.
 
 Edges: groups with no voting member (the quorum scan's agreed index is
--1), ``self_slot`` and ``sender_slot`` at P and above (and a sender at
--1), negative and out-of-range ``a_gid``, ``w_gid`` and ``gidx`` ids,
+-1), ``self_slot`` at -1, at -P (both wrap once) and below -P, ``self_slot``
+and ``sender_slot`` at P and above (and a sender at -1), negative and out-of-range ``a_gid``, ``w_gid`` and ``gidx`` ids,
 duplicate ``w_gid`` ids, empty appended runs (lo > hi), scatter rows for
 groups outside the active set, an active set holding G-1 beside pad ids,
 host term overrides, and (``near_max``) indexes and terms within a few of
@@ -22,11 +22,14 @@ ROWS = tuple(C.MBOX_FIELDS + C.MBOX_SCAT_FIELDS)
 R = {f: i for i, f in enumerate(ROWS)}
 
 
-def state_fields(rng, g: int, p: int, k: int, near_max: bool = False) -> dict:
+def state_fields(rng, g: int, p: int, k: int, near_max: bool = False,
+                 negative_slots: bool = True) -> dict:
     """A seeded state: tails inside the term ring, ascending terms, every
-    role, replies in flight; every 11th group has no voting member and
-    every 13th a self slot at or above P. ``near_max`` lifts indexes and
-    terms to within a few of 2**31 - 1."""
+    role, replies in flight; every 11th group has no voting member, every
+    13th a self slot at or above P, and of every 17th one at -1, one at
+    -P and one below -P (unless ``negative_slots`` is false; they draw
+    nothing from ``rng``). ``near_max`` lifts indexes and terms to within
+    a few of 2**31 - 1."""
     base = I32_MAX - 2 * k + 3 if near_max else 0
     tbase = I32_MAX - 4 if near_max else 0
     snap = base + rng.integers(0, 20 if not near_max else k, g)
@@ -50,6 +53,10 @@ def state_fields(rng, g: int, p: int, k: int, near_max: bool = False) -> dict:
     voting[np.arange(g), self_slot] = True
     voting[0::11] = False  # no voting member: agreed = -1
     self_slot[5::13] = p + rng.integers(0, 3, len(self_slot[5::13]))
+    if negative_slots:
+        self_slot[3::17] = -1
+        self_slot[8::17] = -p
+        self_slot[12::17] = -p - 1 - np.arange(len(self_slot[12::17])) % 3
     active = rng.random((g, p)) < 0.95
     match = np.minimum(base + rng.integers(0, 40, (g, p)), last[:, None])
     unknown = rng.random(g) < 0.2
