@@ -21,6 +21,14 @@ same 10240 groups x 3 replicas on three started coordinators (each with
 its own step thread) through the client API, ``ra_tpu_torch.api``: one
 command and one consistent read per group from 32 client threads, every
 reply and read checked, the replicas of a sample of groups compared.
+Phase harness then runs the fault-injection harnesses on the card:
+``kv_harness.run`` on the batch backend (partitions and membership
+churn; every nemesis dimension at once, with coordinator crash-restarts
+from the WAL and live active-set mode flips, once with the native host
+paths off; lease reads under one-way
+partitions; ENOSPC storms), the live linearizability workload, and the
+planted stale-read bug, which the checker must catch in each active-set
+mode.
 
 Options (the defaults are the smoke run):
 
@@ -33,9 +41,9 @@ Options (the defaults are the smoke run):
 
 Phases print one line each (and their elapsed time). The line before
 the last is a JSON object ``{"kernels": [...]}`` with each kernel's
-launches on the main path, its parity result and its times; the last
-line is ``{"ok": true, "device": {...}}``. Any failed phase exits
-non-zero without that last line. Without CUDA it exits non-zero at once.
+launches on the main path (and in each phase), its parity result and
+its times; the last line is ``{"ok": true, "device": {...}}``. Any
+failed phase exits non-zero without that last line. Without CUDA it exits non-zero at once.
 It imports nothing of JAX and nothing of the ``ra_tpu`` package.
 """
 
@@ -815,6 +823,283 @@ def main_line(km: dict, card: str) -> str:
         f"its wall time, top kernels (ms) {km['top_kernels']} | {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the fault-injection harnesses on the card
+
+
+# The runs of phase harness: the JAX package's tier-1 batch-backend seeds
+# at the harness's own published sizes (capacity 8, 3 nodes + 1 spare;
+# ``kv_harness._run_batch``), each with the assertions of the reference
+# test that runs it. ``kv_harness.run`` keyword arguments, then the op
+# counts and the nemesis counters that must be positive, and the step
+# kernels that must each launch within the run.
+HARNESS_RUNS = (
+    # tests/test_kv_harness.py: partitions + membership churn
+    ("partitions", dict(seed=21, n_ops=100, rescue=False), ("put",), (),
+     ("sub",)),
+    # tests/test_soak.py: every dimension, crash-restarts from WAL and
+    # live active-set mode flips included (seed 2 flips between auto and
+    # always)
+    ("combined", dict(seed=2, n_ops=60, combined=True),
+     ("coord_restart",), ("nemesis_modeflip_injected",), ("sub",)),
+    # tests/test_soak.py's native-off smoke: seed 3's schedule flips to
+    # never at its first op and back to auto at op 22, so the full-width
+    # and the active-set kernels both run within the one run, across two
+    # crash-restarts
+    ("combined_native_off", dict(seed=3, n_ops=60, combined=True,
+                                 native="off"),
+     ("coord_restart",), ("nemesis_modeflip_injected",), ("full", "sub")),
+    # tests/test_kv_harness.py: lease reads under one-way partitions
+    # with forced depositions
+    ("lease", dict(seed=61, n_ops=80, lease=True), ("get", "transfer"), (),
+     ("sub",)),
+    # tests/test_kv_harness.py: ENOSPC storms, degrade and resume
+    ("disk_full", dict(seed=11, n_ops=100, partitions=False,
+                       membership=False, restarts=False, disk_full=True,
+                       op_timeout=3.0),
+     ("disk_full", "batch_degraded", "batch_resumed"), (), ("sub",)),
+)
+STALE_READ_MODES = ("auto", "always", "never")
+
+
+def stale_read_scenario(active_set: str, dev) -> list:
+    """The planted stale-read bug of the JAX package's linearizability
+    tests, on the port: consistent queries answered from local state
+    without the leadership-confirmation quorum. A deposed leader then
+    serves a stale read, and the checker must reject the history.
+    Returns the checker's violations; raises if the bug escaped. The
+    class is patched inside ``try/finally``."""
+    from ra_tpu_torch import api, leaderboard
+    from ra_tpu_torch.kv_harness import DictKv
+    from ra_tpu_torch.linearize import HistoryRecorder, Op, check_history
+    from ra_tpu_torch.ops import consensus as C
+    from ra_tpu_torch.protocol import ElectionTimeout
+    from ra_tpu_torch.runtime.coordinator import BatchCoordinator
+
+    def broken_consistent_query(self, g, fn, fut):
+        # the planted bug: a deposed leader answers from its own state
+        if g.role == C.R_LEADER or g.leader_slot == g.self_slot:
+            self._reply(fut, ("ok", fn(g.machine_state), (g.name, self.name)))
+        else:
+            self._reply(fut, ("redirect", g.sid_of(g.leader_slot)))
+
+    def await_(cond, what):
+        deadline = time.monotonic() + 30
+        while not cond():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"stale-read scenario: timeout: {what}")
+            time.sleep(0.02)
+
+    orig_query = BatchCoordinator._handle_consistent_query
+    BatchCoordinator._handle_consistent_query = broken_consistent_query
+    leaderboard.clear()
+    names = ["sr0", "sr1", "sr2"]
+    coords = {n: BatchCoordinator(n, capacity=8, num_peers=3,
+                                  election_timeout_s=0.1,
+                                  detector_poll_s=0.05,
+                                  active_set=active_set, device=dev)
+              for n in names}
+    ids = [("srg", n) for n in names]
+    rec = HistoryRecorder()
+    try:
+        for c in coords.values():
+            c.start()
+        for n in names:
+            coords[n].add_group("srg", "src", ids, DictKv())
+        coords["sr0"].deliver(ids[0], ElectionTimeout(), None)
+        await_(lambda: coords["sr0"].by_name["srg"].role == C.R_LEADER,
+               "sr0 leads")
+
+        def write(value, target):
+            inv = rec.now()
+            api.process_command(target, ("put", "k", value), timeout=10)
+            rec.record("k", Op(0, "write", value, inv, rec.now()))
+
+        def read_at(target, cid):
+            inv = rec.now()
+            fut = api.Future()
+            coords[target[1]].deliver(
+                target, ("consistent_query", lambda s: s.get("k"), fut), None)
+            out = fut.result(10)
+            if out[0] != "ok":
+                raise AssertionError(f"stale-read scenario: read {out}")
+            rec.record("k", Op(cid, "read", out[1], inv, rec.now()))
+
+        write((0, 1), ids[0])
+        # the leader is cut off; either majority member may take over
+        for o in ("sr1", "sr2"):
+            coords["sr0"].transport.block("sr0", o)
+            coords[o].transport.block(o, "sr0")
+        coords["sr1"].deliver(ids[1], ElectionTimeout(), None)
+        await_(lambda: any(coords[n].by_name["srg"].role == C.R_LEADER
+                           for n in ("sr1", "sr2")), "majority side takes over")
+        write((0, 2), ids[1])
+        new_leader = next(n for n in ("sr1", "sr2")
+                          if coords[n].by_name["srg"].role == C.R_LEADER)
+        read_at(ids[0], cid=1)  # the deposed leader answers stale
+        read_at(("srg", new_leader), cid=2)
+        res = check_history(rec.history())
+    finally:
+        BatchCoordinator._handle_consistent_query = orig_query
+        for c in coords.values():
+            c.transport.unblock_all()
+            c.stop()
+        leaderboard.clear()
+    if res.ok or not any("not linearizable" in v for v in res.violations):
+        raise AssertionError(
+            f"planted stale-read bug escaped the checker (active_set="
+            f"{active_set}): {res.violations}")
+    return res.violations
+
+
+class CheckedCoordinators:
+    """Checks held on every ``BatchCoordinator`` of phase harness (the
+    class is patched inside the ``with`` block and restored after it):
+    when ``stop()`` returns, none of the coordinator's threads (step,
+    egress, sender, detector) is alive, so nothing touches its pinned
+    mailbox buffers or egress events again once a crash-restart builds
+    its successor; and after ``add_group`` (a restarted coordinator's
+    rebuild from the WAL included) every state tensor is on ``dev``."""
+
+    def __init__(self, dev):
+        from ra_tpu_torch.runtime.coordinator import BatchCoordinator
+
+        self.cls = BatchCoordinator
+        self.dev = dev
+        self.stops = self.add_groups = 0
+
+    def __enter__(self):
+        cls, orig_stop, orig_add = self.cls, self.cls.stop, self.cls.add_group
+        self.orig = (orig_stop, orig_add)
+        check = self
+
+        def stop(c):
+            orig_stop(c)
+            alive = [t.name for t in (c._step_thread, c._egress_thread,
+                                      c._sender_thread, c._detector)
+                     if t is not None and t.is_alive()]
+            if alive:
+                raise AssertionError(
+                    f"coordinator {c.name}: threads alive after stop: {alive}")
+            check.stops += 1
+
+        def add_group(c, *args, **kw):
+            out = orig_add(c, *args, **kw)
+            for f in c.state:
+                if f.device.type != check.dev.type:
+                    raise AssertionError(
+                        f"coordinator {c.name}: state on {f.device} after "
+                        f"add_group")
+            check.add_groups += 1
+            return out
+
+        cls.stop, cls.add_group = stop, add_group
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.stop, self.cls.add_group = self.orig
+        return False
+
+
+def phase_harness(torch, C, S, dev) -> dict:
+    """``kv_harness.run`` on the batch backend with its coordinators on
+    ``dev`` for each of ``HARNESS_RUNS``, then the live linearizability
+    workload, then the planted stale-read bug in each active-set mode.
+    Every run must hold; both step kernels must launch during the phase
+    and quorum.cu must not; every coordinator is held to
+    ``CheckedCoordinators``."""
+    with CheckedCoordinators(dev) as checked:
+        out = _harness_runs(C, S, dev)
+    out["stops_checked"] = checked.stops
+    out["add_groups_checked"] = checked.add_groups
+    return out
+
+
+def _harness_runs(C, S, dev) -> dict:
+    from ra_tpu_torch import kv_harness, linearize
+
+    def launches():
+        return {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                "quorum": C.quorum.LAUNCHES}
+
+    def delta(before):
+        return {k: v - before[k] for k, v in launches().items()}
+
+    # the counts cover this phase only
+    S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
+    runs = {}
+    for label, kw, want_ops, want_nemesis, want_kernels in HARNESS_RUNS:
+        before, t = launches(), time.perf_counter()
+        res = kv_harness.run(backend="tpu_batch", device=dev, **kw)
+        elapsed = time.perf_counter() - t
+        if not res.consistent:
+            raise AssertionError(f"harness run {label}: {res.failures}")
+        for k in want_ops:
+            if res.ops.get(k, 0) <= 0:
+                raise AssertionError(f"harness run {label}: no {k} ({res.ops})")
+        for k in want_nemesis:
+            if res.nemesis.get(k, 0) <= 0:
+                raise AssertionError(
+                    f"harness run {label}: {k} never fired ({res.nemesis})")
+        ran = delta(before)
+        for k in want_kernels:
+            if ran[k] <= 0:
+                raise AssertionError(
+                    f"harness run {label}: no {k} step kernel launch ({ran})")
+        runs[label] = {
+            "ops": dict(res.ops), "failures": len(res.failures),
+            "s": elapsed,
+            "nemesis": {k: v for k, v in res.nemesis.items() if v},
+            "launches": ran,
+        }
+
+    before, t = launches(), time.perf_counter()
+    lin = linearize.run_workload(seed=9, backend="tpu_batch", n_clients=4,
+                                 ops_per_client=30, device=dev)
+    if not lin.ok or sum(lin.per_key_ops.values()) <= 30:
+        raise AssertionError(
+            f"linearize run: {lin.violations} ({lin.per_key_ops})")
+    runs["linearize"] = {"ops": dict(lin.per_key_ops), "failures": 0,
+                         "s": time.perf_counter() - t,
+                         "launches": delta(before)}
+
+    for mode in STALE_READ_MODES:
+        before, t = launches(), time.perf_counter()
+        caught = stale_read_scenario(mode, dev)
+        runs[f"stale_read_{mode}"] = {
+            "caught": len(caught), "s": time.perf_counter() - t,
+            "launches": delta(before)}
+
+    total = launches()
+    if total["full"] <= 0 or total["sub"] <= 0:
+        raise AssertionError(
+            f"harness phase: a step kernel never launched {total}")
+    if total["quorum"]:
+        raise AssertionError("the harness phase launched quorum.cu")
+    return {"runs": runs, "launches": total,
+            "restarts": sum(runs[label]["ops"].get("coord_restart", 0)
+                            for label, *_ in HARNESS_RUNS)}
+
+
+def harness_line(kh: dict, card: str) -> str:
+    parts = []
+    for label, r in kh["runs"].items():
+        if "caught" in r:
+            what = f"bug caught ({r['caught']} violation)"
+        else:
+            what = f"ops {r['ops']}, failures {r['failures']}"
+            if r.get("nemesis"):
+                what += f", nemesis {r['nemesis']}"
+        parts.append(f"{label}: {what}, launches {r['launches']}, "
+                     f"{r['s']:.2f} s")
+    return (f"batch backend on the card (capacity 8, 3 nodes + 1 spare): "
+            f"{'; '.join(parts)}; coordinator restarts {kh['restarts']}; "
+            f"coordinators stopped with no thread left {kh['stops_checked']}, "
+            f"add_group calls leaving the state on the device "
+            f"{kh['add_groups_checked']}; "
+            f"step kernel launches in the phase {kh['launches']} | {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
@@ -923,10 +1208,22 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase api: {api_line(ka, card)} | {time.perf_counter() - t:.2f} s")
+
+    # phase 6: the fault-injection harnesses and the linearizability
+    # checker over the port's coordinators on the card
+    t = time.perf_counter()
+    kh = phase_harness(torch, C, S, dev)
+    log(f"phase harness: {harness_line(kh, card)} | "
+        f"{time.perf_counter() - t:.2f} s")
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",
                 "sub": "ra_tpu/ops/consensus.py:703"}
+
+    def by_phase(kind):
+        return {"main": km["launches"][kind], "api": ka["launches"][kind],
+                "harness": kh["launches"][kind]}
+
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",
         "route": "cuda",
@@ -939,6 +1236,7 @@ def main(argv=None) -> int:
         "bound_ms": kq["bound_ms"],
         "bound_by": kq["bound_by"],
         "library_ms": kq["library_ms"],
+        "launches_by_phase": by_phase("quorum"),
     }] + [{
         "name": f"step_{kind}",
         "route": "cuda",
@@ -951,6 +1249,7 @@ def main(argv=None) -> int:
         "bound_ms": ks[kind]["bound_ms"],
         "bound_by": ks[kind]["bound_by"],
         "library_ms": None,
+        "launches_by_phase": by_phase(kind),
     } for kind in ("full", "sub")]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,10 @@
 the step kernels (full width and active set) against the plain torch-op
 step on the card and on the CPU over the edge inputs of
 ``torch_step_cases``, a small 3-coordinator cluster committing
-through the step kernels, and three started coordinators serving the
-client API (``ra_tpu_torch.api``) through them. Every test skips without a card (the kernels
+through the step kernels, three started coordinators serving the
+client API (``ra_tpu_torch.api``) through them, and the fault-injection
+harness and the linearizability workload with their coordinators on the
+card. Every test skips without a card (the kernels
 have no CPU mode). Run on a GPU machine from the repository root; the
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -266,3 +268,24 @@ def test_api_drives_started_coordinators_through_the_kernel(dev, tmp_path):
             wal.close()
             sw.close()
         leaderboard.clear()
+
+
+def test_harness_runs_the_batch_backend_on_the_card(dev):
+    """The combined-fault harness run of ``tests/test_soak.py`` (seed 2,
+    every nemesis dimension, a coordinator crash-restart from the WAL
+    and live active-set mode flips) with the coordinators on the card,
+    then the live linearizability workload: consistent, linearizable,
+    and through the step kernels only."""
+    from ra_tpu_torch import kv_harness, linearize
+
+    launches = (S.LAUNCHES_FULL + S.LAUNCHES_SUB, Q.LAUNCHES)
+    res = kv_harness.run(seed=2, n_ops=60, backend="tpu_batch",
+                         combined=True, device=dev)
+    assert res.consistent, res.failures
+    assert res.ops.get("coord_restart", 0) > 0
+    assert res.nemesis.get("nemesis_modeflip_injected", 0) > 0
+    lin = linearize.run_workload(seed=9, backend="tpu_batch", n_clients=4,
+                                 ops_per_client=30, device=dev)
+    assert lin.ok, lin.violations
+    assert S.LAUNCHES_FULL + S.LAUNCHES_SUB > launches[0]
+    assert Q.LAUNCHES == launches[1]

@@ -11,6 +11,7 @@ records. Device state crosses as numpy arrays:
 read under the coordinator's ``_state_lock``.
 """
 
+import dataclasses
 import importlib
 import os
 import time
@@ -200,3 +201,22 @@ def close_storage(storage):
                 x.close()
             except Exception:  # noqa: BLE001
                 pass
+
+
+def decode(x):
+    """A package-independent value, for comparing the two packages'
+    dataclass states and effects: dataclasses become (class name,
+    decoded fields); containers are decoded element by element, keeping
+    their order."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                tuple((f.name, decode(getattr(x, f.name)))
+                      for f in dataclasses.fields(x)))
+    if isinstance(x, dict):
+        return (type(x).__name__,
+                tuple((decode(k), decode(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)) or type(x).__name__ == "deque":
+        return (type(x).__name__, tuple(decode(v) for v in x))
+    if isinstance(x, (set, frozenset)):
+        return (type(x).__name__, tuple(sorted(map(repr, x))))
+    return x
