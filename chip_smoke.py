@@ -16,7 +16,7 @@ three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
 WAL-backed logs, cooperative pipelined stepping, through the step
 kernels, and checks that every command was committed and applied on all
 three replicas. The same main path runs once more with the plain
-torch-op step, for comparison within the run. Last, phase api drives the
+torch-op step, for comparison within the run. Then phase api drives the
 same 10240 groups x 3 replicas on three started coordinators (each with
 its own step thread) through the client API, ``ra_tpu_torch.api``: one
 command and one consistent read per group from 32 client threads, every
@@ -28,7 +28,17 @@ from the WAL and live active-set mode flips, once with the native host
 paths off; lease reads under one-way
 partitions; ENOSPC storms), the live linearizability workload, and the
 planted stale-read bug, which the checker must catch in each active-set
-mode.
+mode. Phase bench last runs the port's bench, ``python -m
+ra_tpu_torch.bench``, each bench in a process of its own: the decision
+bench (10240 groups x 200 steps through the step kernel), the durable
+headline at the full 10240 groups x 3 replicas, WAL-backed, pipelined,
+with its depth cut to ``BENCH_CMDS`` commands per group (the bench's
+default is 96), and the read bench (lease on against the lease-off
+control) at its defaults; every state check of the bench must hold, and
+each bench's JSON line is printed. Then the operator tools run on the
+card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
+and the decision bench's loop on the step kernel is held against the
+same loop on the plain step at 10240 groups.
 
 Options (the defaults are the smoke run):
 
@@ -90,6 +100,15 @@ API_ELECTION_TIMEOUT_S = 2.0
 # retries are counted and printed
 API_READ_TIMEOUT_S = 10.0
 API_READ_ATTEMPTS = 5
+
+# phase bench: the headline's commands per group (the bench's default
+# is 96, about a quarter hour on the card: cut for the smoke's time),
+# the steps of the decision loop held against the plain step's loop,
+# and the shape of profile_wave
+BENCH_CMDS = 4
+DECISIONS_CHECK_STEPS = 10
+PROFILE_WAVE = (2048, 4)
+READS = (256, 60)  # the read bench's default groups and rounds
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bound
 HBM_BYTES_PER_S = 3.35e12
@@ -352,7 +371,8 @@ def phase_step(torch, C, S, dev) -> dict:
 def open_storage(coords, node_names, workdir: str, storage: list) -> None:
     """Give each coordinator its node's shared WAL and segment writer
     under ``workdir/<node>``, appended to ``storage`` as (tables, wal,
-    segment writer, dir), so that the caller closes what was opened."""
+    dir), the form ``bench.wal_logs`` takes, so that the caller closes
+    what was opened (the segment writer is the WAL's)."""
     from ra_tpu_torch.log.segment_writer import SegmentWriter
     from ra_tpu_torch.log.tables import TableRegistry
     from ra_tpu_torch.log.wal import Wal
@@ -364,29 +384,7 @@ def open_storage(coords, node_names, workdir: str, storage: list) -> None:
         w = Wal(os.path.join(d, "wal"), tables, c.wal_notify,
                 segment_writer=sw, max_batch_size=65536)
         w.notify_many = c.wal_notify_many
-        storage.append((tables, w, sw, d))
-
-
-def wal_logs(storage, g_n: int, chunk: int = 512) -> list:
-    """Per coordinator, the WAL-backed ``Log`` of groups g0..g{n-1} (uid
-    ``g{g}``), built by 8 threads: a Log's directory fsyncs set the
-    set-up's pace and release the GIL, so the fleet's 30720 logs are
-    made in parallel."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    from ra_tpu_torch.log.log import Log
-
-    def build(job):
-        (tables, w, _sw, d), lo = job
-        return [Log(f"g{g}", os.path.join(d, "data", f"g{g}"), tables, w)
-                for g in range(lo, min(lo + chunk, g_n))]
-
-    jobs = [(st, lo) for st in storage for lo in range(0, g_n, chunk)]
-    with ThreadPoolExecutor(8) as pool:
-        parts = list(pool.map(build, jobs))
-    per = len(range(0, g_n, chunk))
-    return [[log for part in parts[i * per:(i + 1) * per] for log in part]
-            for i in range(len(storage))]
+        storage.append((tables, w, d))
 
 
 def phase_main(torch, C, S, dev, workdir: str, tag: str,
@@ -394,7 +392,7 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
     """The main path with coordinators named ``tag``0..2: through the
     step kernels, or (``use_kernels=False``) through the plain torch-op
     step for comparison."""
-    from ra_tpu_torch import obs
+    from ra_tpu_torch import bench, obs
     from ra_tpu_torch.models.bench_machine import BenchMachine
     from ra_tpu_torch.protocol import Command, ElectionTimeout, USR
     from ra_tpu_torch.runtime.coordinator import BatchCoordinator
@@ -439,7 +437,7 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
     storage = []
     try:
         open_storage(coords, node_names, workdir, storage)
-        logs = wal_logs(storage, g_n)
+        logs = bench.wal_logs(storage, g_n)
         members = lambda g: [(f"g{g}", n) for n in node_names]  # noqa: E731
         for i, c in enumerate(coords):
             c.add_groups([
@@ -605,9 +603,9 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
             setattr(C, name, fn)
         for c in coords:
             c.stop()
-        for _tables, w, sw, _d in storage:
+        for _tables, w, _d in storage:
             w.close()
-            sw.close()
+            w.segment_writer.close()
 
 
 # ---------------------------------------------------------------------------
@@ -629,7 +627,7 @@ def phase_api(torch, C, S, dev, workdir: str) -> dict:
     states of a sample of groups compared through ``api.local_query``."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from ra_tpu_torch import api, leaderboard
+    from ra_tpu_torch import api, bench, leaderboard
     from ra_tpu_torch.machine import SimpleMachine
     from ra_tpu_torch.protocol import ElectionTimeout
     from ra_tpu_torch.runtime.coordinator import BatchCoordinator
@@ -646,7 +644,7 @@ def phase_api(torch, C, S, dev, workdir: str) -> dict:
     storage = []
     try:
         open_storage(coords, node_names, workdir, storage)
-        logs = wal_logs(storage, g_n)
+        logs = bench.wal_logs(storage, g_n)
         members = lambda g: [(f"g{g}", n) for n in node_names]  # noqa: E731
         for i, c in enumerate(coords):
             c.add_groups([
@@ -755,9 +753,9 @@ def phase_api(torch, C, S, dev, workdir: str) -> dict:
         # node stop arms one election timer thread per group it follows
         for c in reversed(coords):
             c.stop()
-        for _tables, w, sw, _d in storage:
+        for _tables, w, _d in storage:
             w.close()
-            sw.close()
+            w.segment_writer.close()
         leaderboard.clear()
     torch.cuda.synchronize()
     launches = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
@@ -1100,6 +1098,139 @@ def harness_line(kh: dict, card: str) -> str:
             f"step kernel launches in the phase {kh['launches']} | {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the port's bench and operator tools, each in its own process
+
+
+def run_module(args, timeout: float) -> subprocess.CompletedProcess:
+    """``python -m <args>`` from this checkout; raises unless it exits 0
+    within ``timeout`` seconds (the child is killed at the timeout)."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=HERE,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"python -m {' '.join(args)} exited {proc.returncode}:\n"
+            f"{proc.stderr[-4000:]}")
+    return proc
+
+
+def last_json(proc) -> dict:
+    """The JSON object a bench prints as its last line."""
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+# (label, arguments of ra_tpu_torch.bench, timeout s)
+BENCH_RUNS = (
+    ("decisions", ["--decisions"], 300),
+    ("headline", ["--cmds", str(BENCH_CMDS)], 600),
+    ("reads", ["--reads", "--groups", str(READS[0]), "--cmds", str(READS[1])],
+     300),
+)
+
+
+def phase_bench(torch, C, S, dev) -> dict:
+    """The three benches and the three tools, each a fresh process on
+    ``dev``, with their checks; then the decision loop on the step
+    kernel against the same loop on the plain step, here."""
+    from ra_tpu_torch import bench
+
+    name = f"{dev.type}:{dev.index or 0}" if dev.type == "cuda" else dev.type
+    out = {"benches": {}, "tools": {}}
+    for label, args, timeout in BENCH_RUNS:
+        t = time.perf_counter()
+        res = last_json(run_module(
+            ["ra_tpu_torch.bench", *args, "--device", name], timeout))
+        out["benches"][label] = res
+        out.setdefault("seconds", {})[label] = time.perf_counter() - t
+    dec, head, reads = (out["benches"][k]
+                        for k in ("decisions", "headline", "reads"))
+    if dec["kernel_launches"] != {"step_full": 3 * dec["steps"],
+                                  "step_sub": 0, "quorum_scan": 0}:
+        raise AssertionError(
+            f"decision bench launches {dec['kernel_launches']}: want one "
+            f"step kernel launch per step in each of its 3 runs")
+    if head["passes_completed"] != 3:
+        raise AssertionError(
+            f"headline completed {head['passes_completed']} of 3 passes")
+    if head["admitted_cmds_per_sec"] is None:
+        raise AssertionError("headline: the admission-paced pass timed out")
+    hl = head["kernel_launches"]
+    if hl["step_full"] <= 0 or hl["step_sub"] <= 0 or hl["quorum_scan"]:
+        raise AssertionError(f"headline launches {hl}: want both step "
+                             f"kernels and no quorum.cu")
+    if reads["kernel_launches"]["quorum_scan"]:
+        raise AssertionError("read bench launched quorum.cu")
+    if reads["lease_off"]["read_lease_served"]:
+        raise AssertionError("the lease-off arm served reads by lease")
+    for arm in ("lease_on", "lease_off"):
+        if reads[arm]["reads"] != READS[0] * READS[1]:
+            raise AssertionError(f"read bench {arm}: {reads[arm]['reads']} reads")
+
+    # the operator tools
+    from ra_tpu_torch import obs
+
+    t = time.perf_counter()
+    g, n = PROFILE_WAVE
+    proc = run_module(["ra_tpu_torch.profile_wave", str(g), str(n),
+                       "--top", str(len(obs.WAVE_PHASES)), "--device", name],
+                      600)
+    table = proc.stdout.split("### Wave-phase cost attribution")[1]
+    rows = [ln for ln in table.split("###")[0].splitlines()
+            if ln.startswith("| ") and ln[2].isdigit()]
+    missing = [ph for ph, _ in obs.WAVE_STEP_PHASES
+               if not any(f"| {ph} |" in r for r in rows)]
+    if missing:
+        raise AssertionError(f"profile_wave table lacks {missing}:\n{table}")
+    out["tools"]["profile_wave"] = {
+        "s": time.perf_counter() - t, "rows": rows,
+        "summary": [ln for ln in proc.stderr.splitlines()
+                    if ln.startswith("total wall")]}
+    t = time.perf_counter()
+    proc = run_module(["ra_tpu_torch.obs_smoke", "--device", name], 600)
+    if "obs_smoke: PASS" not in proc.stderr:
+        raise AssertionError(f"obs_smoke did not pass:\n{proc.stderr[-4000:]}")
+    out["tools"]["obs_smoke"] = {
+        "s": time.perf_counter() - t,
+        "summary": [ln for ln in proc.stderr.splitlines()
+                    if ln.startswith("obs_smoke:")]}
+    t = time.perf_counter()
+    proc = run_module(["ra_tpu_torch.ra_top", "--demo", "--device", name,
+                       "-n", "2"], 300)
+    panels = [ln for ln in proc.stdout.splitlines()
+              if ln.startswith("== ra_top · ")]
+    if len(panels) != 2:
+        raise AssertionError(f"ra_top --demo printed {len(panels)} panels")
+    out["tools"]["ra_top"] = {"s": time.perf_counter() - t, "panels": panels}
+
+    # the decision loop on the step kernel against the plain step's loop
+    steps = DECISIONS_CHECK_STEPS
+    n0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+    st_k, sums_k = bench.decisions_loop(GROUPS, steps, dev)
+    if (S.LAUNCHES_FULL - n0[0], S.LAUNCHES_SUB - n0[1]) != (steps, 0):
+        raise AssertionError("the decision loop did not run the step kernel")
+    st_p, sums_p = bench.decisions_loop(
+        GROUPS, steps, dev, step=C.consensus_step_packed_scat_plain)
+    torch.cuda.synchronize()
+    err = int((sums_k - sums_p).abs().max().item())
+    for f, a, b in zip(C.GroupState._fields, st_k, st_p):
+        e = int((a.long() - b.long()).abs().max().item()) if a.numel() else 0
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"decision loop: kernel != plain step in {f} (max err {e})")
+        err = max(err, e)
+    if err or not torch.equal(sums_k, sums_p):
+        raise AssertionError("decision loop: success sums differ")
+    out["decisions_check"] = {"steps": steps, "max_abs_err": err,
+                              "success": sums_k.tolist()}
+    return out
+
+
+def bench_launches(kb: dict, kind: str) -> int:
+    """Launches of kernel ``kind`` summed over the three bench processes."""
+    key = {"full": "step_full", "sub": "step_sub", "quorum": "quorum_scan"}[kind]
+    return sum(b["kernel_launches"][key] for b in kb["benches"].values())
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
@@ -1215,6 +1346,21 @@ def main(argv=None) -> int:
     kh = phase_harness(torch, C, S, dev)
     log(f"phase harness: {harness_line(kh, card)} | "
         f"{time.perf_counter() - t:.2f} s")
+
+    # phase 7: the port's bench and operator tools, each in a process of
+    # its own (within one process the first run of a pair is faster)
+    t = time.perf_counter()
+    kb = phase_bench(torch, C, S, dev)
+    for label, res in kb["benches"].items():
+        log(f"phase bench, {label} ({kb['seconds'][label]:.2f} s): "
+            f"{json.dumps(res)} | {card}")
+    for label, res in kb["tools"].items():
+        log(f"phase bench, {label}: {json.dumps(res)} | {card}")
+    log(f"phase bench: decision loop at G={GROUPS}, "
+        f"{kb['decisions_check']['steps']} steps: step kernel == plain step "
+        f"in every state field and success sum (max_abs_err "
+        f"{kb['decisions_check']['max_abs_err']}) | "
+        f"{time.perf_counter() - t:.2f} s")
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",
@@ -1222,7 +1368,8 @@ def main(argv=None) -> int:
 
     def by_phase(kind):
         return {"main": km["launches"][kind], "api": ka["launches"][kind],
-                "harness": kh["launches"][kind]}
+                "harness": kh["launches"][kind],
+                "bench": bench_launches(kb, kind)}
 
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",

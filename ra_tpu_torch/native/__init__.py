@@ -51,15 +51,21 @@ def _build(src: str = _SRC, so: str = _SO) -> Optional[str]:
     mtime = os.path.getmtime(src)
     if _build_failed.get(src) == mtime:
         return None  # cached negative result for this exact source
+    # build under a private name, then rename: a process that loads the
+    # library while another builds it never maps a partial file
+    tmp = f"{so}.{os.getpid()}.tmp"
     try:
         subprocess.run(
-            ["g++", "-O2", "-shared", "-fPIC", "-o", so, src],
+            ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, src],
             check=True,
             capture_output=True,
             timeout=120,
         )
+        os.replace(tmp, so)
         return so
     except Exception as e:  # noqa: BLE001
+        if os.path.exists(tmp):
+            os.unlink(tmp)
         _build_failed[src] = mtime
         if src not in _warned:
             _warned.add(src)

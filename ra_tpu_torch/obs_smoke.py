@@ -1,0 +1,523 @@
+"""Observability smoke check (CI): run a short WAL-backed bench
+in-process (filling the wave/commit/WAL histograms under real load,
+with the trace buffer recording), then bring up a live 3-coordinator
+cluster, scrape the Prometheus exposition, the ``system_overview`` and
+``cluster_health`` surfaces, and fail on missing or NaN metrics; a
+dumped wave trace must also validate as well-formed Chrome trace JSON
+(matched B/E spans, monotone per-lane timestamps). Registered next to
+scripts/flake_gate.sh — the gate that keeps the instruments we debug
+liveness WITH from silently rotting while the code they instrument
+evolves.
+
+Usage: python -m ra_tpu_torch.obs_smoke [--groups N] [--cmds N] [--device DEV]
+
+``--device`` places every coordinator and the bench (default ``cuda``,
+which fails without a card; ``cpu`` runs the plain torch-op step).
+"""
+import argparse
+import json
+import math
+import os
+import re
+import sys
+import tempfile
+import time
+
+
+def _check_exposition(text, errors, required) -> None:
+    for line in text.splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        val = line.rsplit(" ", 1)[-1]
+        try:
+            f = float(val)
+        except ValueError:
+            errors.append(f"unparseable sample value: {line!r}")
+            continue
+        if math.isnan(f) or math.isinf(f):
+            errors.append(f"NaN/inf sample: {line!r}")
+    for pat in required:
+        m = re.search(pat, text)
+        if m is None:
+            errors.append(f"missing metric: /{pat}/")
+        elif m.groups() and int(m.group(1)) == 0:
+            errors.append(f"zero-count metric: {m.group(0)}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--groups", type=int, default=64)
+    ap.add_argument("--cmds", type=int, default=3)
+    ap.add_argument("--device", default=None,
+                    help="torch device of the coordinators (default: cuda)")
+    args = ap.parse_args()
+
+    from ra_tpu_torch.bench import bench_pipeline
+    from ra_tpu_torch import api, counters, leaderboard, obs
+    from ra_tpu_torch.machine import SimpleMachine
+    from ra_tpu_torch.ops import consensus as C
+    from ra_tpu_torch.runtime.coordinator import BatchCoordinator
+
+    obs.trace_buffer().enable()  # record wave spans through the bench
+    out = bench_pipeline(args.groups, args.cmds, wal=True,
+                         device=args.device)
+    obs.trace_buffer().disable()
+    print(f"obs_smoke: bench ran at {out['value']:.0f} cmd/s "
+          f"(p50 {out['p50_ms']} ms)", file=sys.stderr)
+
+    errors: list = []
+
+    # the dumped trace must be well-formed Chrome trace JSON (matched
+    # B/E pairs, monotone per-lane begins) and actually hold spans
+    with tempfile.TemporaryDirectory() as td:
+        trace_path = os.path.join(td, "wave.json")
+        n_spans = api.dump_trace(trace_path)
+        if n_spans == 0:
+            errors.append("trace dump holds no spans after the bench")
+        try:
+            doc = json.load(open(trace_path))
+        except Exception as e:  # noqa: BLE001
+            errors.append(f"trace dump is not JSON: {e}")
+        else:
+            errors.extend(obs.validate_chrome_trace(doc))
+            names = {e["name"] for e in doc["traceEvents"]
+                     if e.get("ph") == "B"}
+            for ph, _h in obs.WAVE_STEP_PHASES:
+                if ph not in names:
+                    errors.append(f"trace has no {ph!r} spans")
+    obs.trace_buffer().clear()
+
+    # the bench filled the histograms (they outlive its teardown):
+    # every wave phase and all five commit stages must have fired. The
+    # adaptive group-commit flush_wait family must EXIST (a short smoke
+    # burst may legitimately never clear the coalescing gate, so its
+    # count may be 0 — presence is the gate). The native hot-loop
+    # phases (docs/INTERNALS.md §18) record only when rt_native.so
+    # loaded — without a compiler they are excluded, with one they must
+    # be NONZERO (the native paths silently never engaging is exactly
+    # the rot this gate exists to catch).
+    from ra_tpu_torch import native as _native
+
+    rt_loaded = _native.entry_points()["classify"]
+    _native_phases = {"classify_native", "pack_native"}
+    if rt_loaded:
+        nc = out.get("native_counters", {})
+        for k in ("native_classify_batches", "native_pack_batches"):
+            if nc.get(k, 0) <= 0:
+                errors.append(f"bench ran with rt_native loaded but {k}=0 "
+                              f"(native path never engaged)")
+    required_bench = (
+        [rf"ra_wave_bench0_{ph}_seconds_count (\d+)"
+         for ph, _ in obs.WAVE_PHASES
+         if rt_loaded or ph not in _native_phases]
+        + [rf"ra_commit_bench0_{st}_seconds_count (\d+)"
+           for st, _ in obs.COMMIT_STAGES]
+        + [r"ra_wal_\w+_fsync_seconds_count (\d+)",
+           r"ra_wal_\w+_batch_seconds_count (\d+)",
+           r"ra_wal_\w+_flush_wait_seconds_count \d+"]
+    )
+
+    # pipelined wave loop (docs/INTERNALS.md §15): a short cooperative
+    # stage/finish burst must PROVE overlap — staging/dispatching while
+    # the previous step was still in flight — via the counter the
+    # pipeline exists for. Kept alive (with one registered WAL) until
+    # the scrape below so the families are present in the exposition.
+    from ra_tpu_torch.machine import SimpleMachine as _SM
+    from ra_tpu_torch.protocol import Command, ElectionTimeout, USR
+    from ra_tpu_torch.runtime.transport import NodeRegistry
+
+    pipe_reg = NodeRegistry()
+    pipe_coords = [
+        BatchCoordinator(f"pipe{i}", capacity=8, num_peers=3, nodes=pipe_reg,
+                         device=args.device)
+        for i in range(3)
+    ]
+    pipe_ids = [("pp", f"pipe{i}") for i in range(3)]
+    for c in pipe_coords:
+        c.add_group("pp", "ppcl", pipe_ids, _SM(lambda cm, s: s + cm, 0))
+
+    def _pipe_round():
+        worked = False
+        for c in pipe_coords:
+            worked = c.step_stage() or worked
+        for c in pipe_coords:
+            worked = c.step_finish() or worked
+        return worked
+
+    pipe_coords[0].deliver(pipe_ids[0], ElectionTimeout(), None)
+    deadline = time.time() + 30
+    while time.time() < deadline and (
+        pipe_coords[0].by_name["pp"].role != C.R_LEADER
+    ):
+        if not _pipe_round():
+            time.sleep(0.001)
+    for _ in range(5):
+        pipe_coords[0].deliver(
+            pipe_ids[0], Command(kind=USR, data=1, reply_mode="noreply"),
+            None,
+        )
+    while time.time() < deadline and not all(
+        c.by_name["pp"].machine_state == 5 for c in pipe_coords
+    ):
+        if not _pipe_round():
+            time.sleep(0.001)
+    if pipe_coords[0].counters.get("pipeline_overlap_ns") <= 0:
+        errors.append("pipelined burst recorded no staging overlap")
+
+    # one live registered WAL so the group-commit / native counter
+    # families are scrapeable (bench WALs unregister on teardown)
+    import pickle
+
+    from ra_tpu_torch.log.tables import TableRegistry
+    from ra_tpu_torch.log.wal import Wal
+
+    _wal_dir = tempfile.mkdtemp(prefix="obs_smoke_wal_")
+    smoke_wal = Wal(os.path.join(_wal_dir, "wal"), TableRegistry(),
+                    lambda u, e: None, threaded=False)
+    smoke_wal.write("su", 1, 1, pickle.dumps("x"))
+    smoke_wal.flush()
+
+    # live cluster: counter vectors (deleted when a coordinator stops)
+    # and the one-call system_overview surface
+    leaderboard.clear()
+    coords = [
+        BatchCoordinator(f"obs{i}", capacity=8, num_peers=3, lease=True,
+                         device=args.device)
+        for i in range(3)
+    ]
+    for c in coords:
+        c.start()
+    try:
+        members = [("og0", f"obs{i}") for i in range(3)]
+        for c in coords:
+            c.add_group("og0", "obscl", members,
+                        SimpleMachine(lambda cm, s: s + cm, 0))
+        from ra_tpu_torch.protocol import ElectionTimeout
+
+        coords[0].deliver(("og0", "obs0"), ElectionTimeout(), None)
+        deadline = time.time() + 30
+        while (
+            coords[0].by_name["og0"].role != C.R_LEADER
+            and time.time() < deadline
+        ):
+            time.sleep(0.02)
+        for _ in range(3):
+            api.process_command(("og0", "obs0"), 1)
+        # lease read path (docs/INTERNALS.md §20): the write traffic's
+        # AER acks earned the leader lease — consistent reads must now
+        # serve locally, and a staleness-bounded local read must record
+        # the follower-staleness histogram; both families are gated in
+        # the scrape below
+        deadline = time.time() + 15
+        while (
+            coords[0].counters.get("read_lease_served") < 1
+            and time.time() < deadline
+        ):
+            out = api.consistent_query(("og0", "obs0"), lambda s: s)
+            if out[0] != "ok" or out[1] != 3:
+                errors.append(f"lease-path consistent_query wrong: {out!r}")
+                break
+        if coords[0].counters.get("read_lease_served") < 1:
+            errors.append("consistent reads never served from the lease")
+        try:
+            bout = api.local_query(("og0", "obs0"), lambda s: s,
+                                   max_staleness_s=30.0)
+            if bout[0] != "ok":
+                errors.append(f"bounded local read failed: {bout!r}")
+        except api.StaleReadError as e:
+            errors.append(f"bounded local read rejected on the leader: {e}")
+        # at least one health scan per node (tick cadence: 1s default),
+        # AND a scan recent enough to have seen the elected leader —
+        # rows snapshot the LAST scan, which may predate the election
+        def _health_ready():
+            for i in range(3):
+                c = counters.fetch(("health", f"obs{i}"))
+                if c is None or c.get("health_scans") < 1:
+                    return False
+            return any(
+                r["role"] == "leader"
+                for r in api.cluster_health()["clusters"]
+                .get("obscl", {}).get("groups", {}).values()
+            )
+
+        deadline = time.time() + 30
+        while time.time() < deadline and not _health_ready():
+            time.sleep(0.05)
+
+        # nemesis plane (docs/INTERNALS.md §17): drive one dimension
+        # through a stub context so the per-dimension injected/healed
+        # counter family is present AND nonzero in the scrape — the
+        # soak's coverage asserts read these same counters
+        from ra_tpu_torch import nemesis as nem
+
+        _nem_blocked: list = []
+        _nem_ctx = nem.NemesisContext(
+            peers=lambda: ["na", "nb", "nc"],
+            members=lambda: ["na", "nb", "nc"],
+            block=lambda a, b: _nem_blocked.append((a, b)),
+            unblock_all=_nem_blocked.clear,
+        )
+        with nem.Planner(_nem_ctx, 1, "obs_smoke",
+                         nem.standard_dimensions()) as _nem_pl:
+            _nem_pl.fire("partition", _nem_pl.rng)
+            _nem_pl.heal_transient("smoke")
+        if len(_nem_pl.schedule) < 2:
+            errors.append("nemesis planner recorded no inject/heal schedule")
+        if _nem_blocked:
+            errors.append("nemesis heal left one-sided blocks armed")
+
+        # deterministic simulation plane (docs/INTERNALS.md §19): run
+        # one short faulted session schedule in-process so the sim_*
+        # counters AND the session/lock machine's session_* counters
+        # are present and nonzero in the scrape — the sweep lane
+        # (scripts/sim_sweep.sh) asserts against these same families
+        from ra_tpu_torch.sim import Schedule as _SimSchedule
+        from ra_tpu_torch.sim import run_schedule as _run_sim
+
+        _sim_res = _run_sim(_SimSchedule(
+            seed=1, workload="session",
+            drop_p=0.05, dup_p=0.05, delay_p=0.2,
+        ))
+        if not _sim_res.ok:
+            errors.append(
+                f"obs_smoke sim schedule failed: {_sim_res.violations[:1]}"
+            )
+
+        # storage-pressure plane (docs/INTERNALS.md §21): drive one
+        # StoragePressure through a full degraded episode (credits must
+        # starve while degraded and restore on resume) plus watermark /
+        # brownout transitions so the ra_disk_* / ra_brownout_* families
+        # are present AND nonzero in the scrape. The snapshot credit
+        # families ride the live coordinator vectors — presence-gated,
+        # since no snapshot transfer runs inside a smoke burst.
+        from ra_tpu_torch.pressure import StoragePressure as _SP
+
+        _sp = _SP("obs_smoke_disk")
+        _sp.enter_degraded(detail="obs_smoke")
+        if _sp.snapshot_credits(4) != 0:
+            errors.append("degraded pressure still grants snapshot credits")
+        _sp.exit_degraded()
+        if _sp.snapshot_credits(4) != 4:
+            errors.append("resumed pressure grants no snapshot credits")
+        _sp.counter.incr("disk_soft_trips")
+        _sp.counter.incr("disk_reclaims")
+        _sp.counter.put("disk_used_bytes", 123)
+        _sp.counter.incr("brownout_entered")
+        _sp.counter.incr("brownout_exited")
+
+        text = api.prometheus_metrics()
+        required_live = required_bench + [
+            r"# TYPE ra_commit_rate gauge",
+            r"# TYPE ra_commands_rejected counter",
+            r"ra_lane_wedges",  # presence only: 0 is the healthy value
+            # pipelined wave loop: the coop burst above must show
+            # overlap > 0 (the (\d+)-zero check enforces nonzero)
+            r"ra_pipeline_overlap_ns\{[^}]*pipe0[^}]*\} (\d+)",
+            r"ra_pipeline_steps\{[^}]*pipe0[^}]*\} (\d+)",
+            # adaptive group-commit gauge family (wal counters register
+            # per-scope; the smoke WAL below keeps one alive to scrape)
+            r"# TYPE ra_group_commit_delay_us gauge",
+            r"# TYPE ra_group_commit_waits counter",
+            r"# TYPE ra_native_batches counter",
+            # native hot-loop runtime (docs/INTERNALS.md §18): family
+            # presence always; with rt_native loaded the live started
+            # cluster's traffic must have engaged classify and pack
+            # (egress stays 0 in-proc — the TCP seam is not wired here)
+            r"# TYPE ra_native_classify_batches counter",
+            r"# TYPE ra_native_pack_batches counter",
+            r"# TYPE ra_native_egress_batches counter",
+            r"# TYPE ra_native_fallbacks counter",
+        ] + ([
+            r"ra_native_classify_batches\{[^}]*obs0[^}]*\} (\d+)",
+            r"ra_native_pack_batches\{[^}]*obs0[^}]*\} (\d+)",
+        ] if rt_loaded else []) + [
+            # async command plane (docs/INTERNALS.md §16): the live
+            # STARTED cluster above ran its traffic through the
+            # lock-free ingress rings, the event-driven step wakeups,
+            # and the dedicated egress sender thread — the counters
+            # must prove each path actually carried the burst
+            r"ra_ingress_ring_msgs\{[^}]*obs0[^}]*\} (\d+)",
+            r"ra_ingress_ring_drains\{[^}]*obs0[^}]*\} (\d+)",
+            r"# TYPE ra_ingress_ring_full counter",  # 0 = healthy
+            r"# TYPE ra_ingress_ring_lanes gauge",
+            r"ra_step_wakeups\{[^}]*obs0[^}]*\} (\d+)",
+            # 0 is the invariant value while idle; presence is the gate
+            # (the zero assertion lives in tests/test_command_plane.py)
+            r"# TYPE ra_step_spurious_wakeups counter",
+            r"ra_egress_thread_batches\{[^}]*obs0[^}]*\} (\d+)",
+            r"ra_egress_thread_msgs\{[^}]*obs0[^}]*\} (\d+)",
+            r"# TYPE ra_egress_thread_ring_full counter",
+            r"# TYPE ra_staging_passes counter",
+            r"# TYPE ra_staging_prezeroed counter",
+            # health plane families (docs/INTERNALS.md §14)
+            r"ra_health_scans\{[^}]*obs0[^}]*\} (\d+)",
+            r"ra_health_fetches\{[^}]*obs0[^}]*\} (\d+)",
+            r"# TYPE ra_health_stuck gauge",
+            r"ra_health_quiet\{[^}]*obs0[^}]*\} (\d+)",
+            # nemesis plane (docs/INTERNALS.md §17): the stub planner
+            # above fired + healed a partition, so those two must be
+            # nonzero; the other dimensions gate on family presence
+            r"ra_nemesis_partition_injected\{[^}]*obs_smoke[^}]*\} (\d+)",
+            r"ra_nemesis_partition_healed\{[^}]*obs_smoke[^}]*\} (\d+)",
+            r"# TYPE ra_nemesis_oneway_injected counter",
+            r"# TYPE ra_nemesis_disk_injected counter",
+            r"# TYPE ra_nemesis_crash_injected counter",
+            r"# TYPE ra_nemesis_membership_injected counter",
+            r"# TYPE ra_nemesis_overload_injected counter",
+            r"# TYPE ra_nemesis_modeflip_injected counter",
+            r"# TYPE ra_nemesis_heals_forced counter",
+            # deterministic simulation plane (docs/INTERNALS.md §19):
+            # the in-process schedule above must have run, stepped
+            # virtual time, and exercised every network fault band
+            r"ra_sim_schedules_run\{[^}]*plane[^}]*\} (\d+)",
+            r"ra_sim_steps_executed\{[^}]*plane[^}]*\} (\d+)",
+            r"ra_sim_virtual_ms\{[^}]*plane[^}]*\} (\d+)",
+            r"ra_sim_msgs_delivered\{[^}]*plane[^}]*\} (\d+)",
+            r"ra_sim_msgs_dropped\{[^}]*plane[^}]*\} (\d+)",
+            r"ra_sim_msgs_duplicated\{[^}]*plane[^}]*\} (\d+)",
+            r"ra_sim_msgs_delayed\{[^}]*plane[^}]*\} (\d+)",
+            r"# TYPE ra_sim_schedules_failed counter",  # 0 = healthy
+            r"# TYPE ra_sim_shrink_iterations counter",
+            r"# TYPE ra_sim_minimized_ops counter",
+            # session/lock machine counters, carried by the sim run:
+            # opens, grants, and at least one TTL lease lapse must have
+            # landed (the sim's whole point is reaching these paths)
+            r"ra_session_opens\{[^}]*sim[^}]*\} (\d+)",
+            r"ra_session_lock_acquires\{[^}]*sim[^}]*\} (\d+)",
+            r"ra_session_expiries_ttl\{[^}]*sim[^}]*\} (\d+)",
+            r"# TYPE ra_session_renews counter",
+            r"# TYPE ra_session_closes counter",
+            r"# TYPE ra_session_expiries_down counter",
+            r"# TYPE ra_session_lock_waits counter",
+            r"# TYPE ra_session_lock_releases counter",
+            r"# TYPE ra_session_lock_steals counter",
+            r"# TYPE ra_session_lock_handoffs counter",
+            # lease-based local reads (docs/INTERNALS.md §20): the
+            # burst above must have served at least one read from the
+            # lease and recorded one bounded local read + its
+            # staleness histogram (per-node family name)
+            r"ra_read_lease_served\{[^}]*obs0[^}]*\} (\d+)",
+            r"ra_read_local_bounded\{[^}]*obs0[^}]*\} (\d+)",
+            r"ra_follower_read_staleness_\w+_seconds_count (\d+)",
+            r"# TYPE ra_read_quorum_fallback counter",
+            r"# TYPE ra_read_lease_expirations counter",
+            r"# TYPE ra_read_lease_revocations counter",
+            r"# TYPE ra_read_stale_rejected counter",
+            # storage-pressure plane (docs/INTERNALS.md §21): the stub
+            # episode above must show up nonzero; the rest of the
+            # taxonomy gates on family presence
+            r"ra_disk_degraded_entered\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"ra_disk_degraded_resumed\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"ra_disk_soft_trips\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"ra_disk_reclaims\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"ra_disk_used_bytes\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"ra_brownout_entered\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"ra_brownout_exited\{[^}]*obs_smoke_disk[^}]*\} (\d+)",
+            r"# TYPE ra_disk_hard_trips counter",
+            r"# TYPE ra_disk_pressure_state gauge",
+            r"# TYPE ra_disk_probe_attempts counter",
+            r"# TYPE ra_brownout_active gauge",
+            r"# TYPE ra_brownout_sheds counter",
+            r"# TYPE ra_space_failures counter",
+            r"# TYPE ra_commands_rejected_nospace counter",
+            r"# TYPE ra_health_disk_pressure gauge",
+            r"# TYPE ra_health_disk_transitions counter",
+            # snapshot credit flow control (§21): presence only — no
+            # transfer runs inside a smoke burst
+            r"# TYPE ra_snapshot_credits_granted counter",
+            r"# TYPE ra_snapshot_credit_waits counter",
+            r"# TYPE ra_snapshot_credit_window gauge",
+            # sim disk-space model (§21)
+            r"# TYPE ra_sim_disk_exhaustions counter",
+            r"# TYPE ra_sim_disk_parked_writes counter",
+            # nemesis disk-pressure dimensions
+            r"# TYPE ra_nemesis_disk_full_injected counter",
+            r"# TYPE ra_nemesis_slow_disk_injected counter",
+        ]
+        _check_exposition(text, errors, required_live)
+
+        ov = api.system_overview("obs0")
+        for section in ("overview", "counters", "histograms", "clusters",
+                        "health", "events"):
+            if not ov.get(section):
+                errors.append(f"system_overview section {section!r} empty")
+
+        # cluster_health: every node scanning (single-fetch discipline
+        # proven by scans == fetches), the group joined under its
+        # cluster, all gauge values finite
+        ch = api.cluster_health()
+        for i in range(3):
+            s = ch["nodes"].get(f"obs{i}")
+            if s is None:
+                errors.append(f"cluster_health missing node obs{i}")
+                continue
+            if s["scans"] < 1:
+                errors.append(f"obs{i}: no health scans ran")
+            # fetches incr at tick start, scans at tick end: a read
+            # racing one in-flight tick may see fetches one ahead —
+            # anything else breaks the single-fetch-per-tick discipline
+            if not 0 <= s["fetches"] - s["scans"] <= 1:
+                errors.append(
+                    f"obs{i}: scans={s['scans']} vs fetches={s['fetches']} "
+                    f"(single-fetch-per-tick discipline broken)"
+                )
+        grp = ch.get("clusters", {}).get("obscl", {}).get("groups", {})
+        if "og0@obs0" not in grp:
+            errors.append("cluster_health did not join og0@obs0 under obscl")
+        for key, row in grp.items():
+            for fld in ("commit_gap", "match_gap", "backlog", "commit_rate",
+                        "churn", "leader_age_s"):
+                v = row.get(fld)
+                if not isinstance(v, (int, float)) or v != v:
+                    errors.append(f"{key}: bad {fld} value {v!r}")
+        if not any(r["role"] == "leader" for r in grp.values()):
+            errors.append("cluster_health shows no leader row for obscl")
+        ch = {
+            k[2] for k in ov["histograms"]
+            if isinstance(k, tuple) and k[0] == "commit"
+        }
+        missing = {st for st, _ in obs.COMMIT_STAGES} - ch
+        if missing:
+            errors.append(f"commit stages never recorded: {sorted(missing)}")
+        if not any(e["kind"] == "election" for e in ov["events"]):
+            errors.append("flight recorder holds no election event")
+        if not any(e["kind"] == "lease_acquired" for e in ov["events"]):
+            errors.append("flight recorder holds no lease_acquired event")
+    finally:
+        for c in coords:
+            c.stop()
+        for c in pipe_coords:
+            c.stop()
+        try:
+            _sp.delete()
+        except Exception:  # noqa: BLE001
+            pass
+        try:
+            smoke_wal.close()
+        except Exception:  # noqa: BLE001
+            pass
+        import shutil
+
+        shutil.rmtree(_wal_dir, ignore_errors=True)
+        leaderboard.clear()
+
+    if errors:
+        print("obs_smoke: FAIL", file=sys.stderr)
+        for e in errors:
+            print(f"  - {e}", file=sys.stderr)
+        return 1
+    print(f"obs_smoke: PASS ({len(text.splitlines())} exposition lines, "
+          f"{len(ov['histograms'])} live histograms, "
+          f"{len(ov['events'])} recent events)", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    rc = main()
+    # hard exit: the verdict is printed and all checks are done — the
+    # smoke run leaves many device-touching threads (WAL writers,
+    # detector loops, CUDA dispatch) whose interpreter-teardown race can
+    # abort an otherwise-green gate
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(rc)

@@ -1,0 +1,247 @@
+"""Phase-attribution profiler for the WAL-backed pipelined bench.
+
+Runs ``bench_pipeline`` with the obs instrumentation live and emits the
+wave-phase cost attribution as MARKDOWN tables — the top-5 cost table
+ROADMAP item 2 asks for (published in docs/INTERNALS.md §13) — plus the
+commit-latency stage decomposition and the WAL flush/fsync
+distributions. ``--cprofile`` additionally wraps the run in cProfile
+and dumps cumulative stats (the old behavior).
+
+The step-loop phases (ingress_drain, host_pack, device_step,
+host_egress, aer_fanout) are disjoint slices of every coordinator
+step — their share column attributes the whole step loop. apply and
+wal_handoff are SUBSETS of host_egress / ingress_drain respectively,
+and the WAL rows run on their own threads (concurrent with the loop);
+they are listed for attribution, not added to the share denominator.
+
+Usage: python -m ra_tpu_torch.profile_wave
+       [groups] [cmds] [--top N] [--cprofile] [--trace out.json]
+       [--native on|off|both] [--device DEV]
+
+``--device`` places the coordinators (default ``cuda``, which fails
+without a card; ``cpu`` runs the plain torch-op step).
+
+``--native both`` runs the native hot-loop runtime pass and the Python
+control back to back (histograms reset between) and prints both phase
+tables plus the throughput/latency comparison line — the per-round
+verification surface for docs/INTERNALS.md §18.
+
+``--trace out.json`` additionally records every wave phase as a
+timeline span and dumps Chrome/Perfetto trace JSON (load in
+chrome://tracing or ui.perfetto.dev) — the view that shows wave-phase
+OVERLAP, which the share table cannot.
+"""
+import argparse
+import sys
+import time
+
+
+# the disjoint/subset split lives next to the phase definitions in
+# ra_tpu_torch.obs (WAVE_STEP_PHASES / WAVE_SUBSET_PHASES) so a new phase
+# shows up here without touching this tool; resolved lazily, so that
+# importing this module imports nothing of the package
+def _phase_split():
+    from ra_tpu_torch import obs
+
+    return (
+        tuple(ph for ph, _ in obs.WAVE_STEP_PHASES),
+        dict(obs.WAVE_SUBSET_PHASES),
+    )
+
+
+def _merged(names):
+    """Merge the histograms under ``names`` into one (None if absent)."""
+    from ra_tpu_torch import obs
+
+    out = None
+    for name in names:
+        h = obs.histograms().fetch(name)
+        if h is None or h.n == 0:
+            continue
+        if out is None:
+            out = obs.LogHistogram(name)
+        out.merge(h)
+    return out
+
+
+def _fmt_ms(ns: float) -> str:
+    return f"{ns / 1e6:.3f}"
+
+
+def phase_tables(nodes, top: int = 5) -> str:
+    """Markdown cost tables from the live obs registry (call after a
+    bench/workload ran in this process)."""
+    from ra_tpu_torch import obs
+
+    step_phases, subset_phases = _phase_split()
+    rows = []
+    for ph in step_phases + tuple(subset_phases):
+        h = _merged([("wave", n, ph) for n in nodes])
+        if h is not None:
+            rows.append((ph, h))
+    denom = sum(h.total for ph, h in rows if ph in step_phases) or 1
+    rows.sort(key=lambda r: r[1].total, reverse=True)
+    out = [f"| rank | phase | total s | share of step loop | samples "
+           f"| p50 ms | p99 ms | note |",
+           "|---|---|---|---|---|---|---|---|"]
+    for i, (ph, h) in enumerate(rows[:top], 1):
+        p50, p99 = h.percentiles((50, 99))
+        note = subset_phases.get(ph, "")
+        share = (
+            f"{100.0 * h.total / denom:.1f}%" if ph in step_phases else "—"
+        )
+        out.append(
+            f"| {i} | {ph} | {h.total / 1e9:.2f} | {share} | {h.n} "
+            f"| {_fmt_ms(p50)} | {_fmt_ms(p99)} | {note} |"
+        )
+    tables = ["### Wave-phase cost attribution (top "
+              f"{min(top, len(rows))})", ""] + out
+
+    crows = []
+    for st, _help in obs.COMMIT_STAGES:
+        h = _merged([("commit", n, st) for n in nodes])
+        if h is not None:
+            crows.append((st, h))
+    if crows:
+        tables += ["", "### Commit-latency stage decomposition", "",
+                   "| stage | samples | p50 ms | p90 ms | p99 ms | mean ms |",
+                   "|---|---|---|---|---|---|"]
+        for st, h in crows:
+            p50, p90, p99 = h.percentiles((50, 90, 99))
+            tables.append(
+                f"| {st} | {h.n} | {_fmt_ms(p50)} | {_fmt_ms(p90)} "
+                f"| {_fmt_ms(p99)} | {h.mean() / 1e6:.3f} |"
+            )
+
+    wrows = [
+        (name, obs.histograms().fetch(name))
+        for name in obs.histograms().names()
+        if isinstance(name, tuple) and name and name[0] == "wal"
+    ]
+    wrows = [(n, h) for n, h in wrows if h is not None and h.n]
+    if wrows:
+        tables += ["", "### WAL (own threads, concurrent with the loop)",
+                   "", "| histogram | samples | total s | p50 ms | p99 ms |",
+                   "|---|---|---|---|---|"]
+        for name, h in sorted(wrows, key=lambda r: -r[1].total):
+            p50, p99 = h.percentiles((50, 99))
+            tables.append(
+                f"| {name[1]}/{name[2]} | {h.n} | {h.total / 1e9:.2f} "
+                f"| {_fmt_ms(p50)} | {_fmt_ms(p99)} |"
+            )
+    return "\n".join(tables)
+
+
+def _reset_wave_histograms() -> None:
+    """Zero every live histogram so a second in-process bench run's
+    attribution tables read only its own samples (the --native both
+    comparison runs two benches back to back)."""
+    from ra_tpu_torch import obs
+
+    reg = obs.histograms()
+    for name in reg.names():
+        h = reg.fetch(name)
+        if h is not None:
+            h.reset()
+
+
+def main(groups=2048, cmds=24, top=5, cprofile=False, trace=None,
+         pipeline="on", native="on", device=None) -> None:
+    from ra_tpu_torch.bench import bench_pipeline
+
+    if trace:
+        # wave-phase timeline spans (Chrome/Perfetto JSON): the view
+        # that shows whether device_step overlaps host_egress — the
+        # verification surface for the step-pipelining refactor
+        from ra_tpu_torch import obs
+
+        obs.trace_buffer().enable()
+    # --native both: the A/B attribution pair — the native hot-loop
+    # runtime run first, then the Python control, each with its own
+    # phase tables (classify_native/pack_native rows appear only in the
+    # native run; ingress_drain/host_pack shrink by what moved native)
+    variants = (
+        [("auto", "native on"), ("off", "native off (control)")]
+        if native == "both"
+        else [("auto" if native == "on" else "off", f"native {native}")]
+    )
+    results = []
+    for native_spec, label in variants:
+        _reset_wave_histograms()
+        t0 = time.perf_counter()
+        pr = None
+        if cprofile:
+            import cProfile
+
+            pr = cProfile.Profile()
+            pr.enable()
+        out = bench_pipeline(groups, cmds, wal=True, pipeline=pipeline,
+                             native=native_spec, device=device)
+        if pr is not None:
+            pr.disable()
+        dt = time.perf_counter() - t0
+        if trace:
+            from ra_tpu_torch import api
+
+            n_spans = api.dump_trace(trace)
+            print(f"trace: {n_spans} span events -> {trace} "
+                  f"(open in chrome://tracing or ui.perfetto.dev)",
+                  file=sys.stderr)
+        print(f"total wall: {dt:.1f}s  result: {out['value']:.0f} cmd/s "
+              f"p50={out['p50_ms']}ms p99={out['p99_ms']}ms [{label}]",
+              file=sys.stderr)
+        print(f"\n## profile_wave: {groups} groups x {cmds} cmds "
+              f"(WAL-backed, pipeline={pipeline}, {label}, "
+              f"{out['value']:.0f} cmd/s, "
+              f"unloaded p50 {out['p50_ms']} ms)\n")
+        print(phase_tables([f"bench{i}" for i in range(3)], top=top))
+        results.append((label, out))
+        if pr is not None:
+            import io
+            import pstats
+
+            s = io.StringIO()
+            ps = pstats.Stats(pr, stream=s).sort_stats("cumulative")
+            ps.print_stats(45)
+            print(s.getvalue(), file=sys.stderr)
+    if len(results) == 2:
+        (_, on), (_, off) = results
+        ratio = on["value"] / off["value"] if off["value"] else float("inf")
+        print(f"\n### native on vs off: {on['value']:.0f} vs "
+              f"{off['value']:.0f} cmd/s ({ratio:.2f}x), unloaded p50 "
+              f"{on['p50_ms']} vs {off['p50_ms']} ms, native counters "
+              f"{on['native_counters']}")
+
+
+if __name__ == "__main__":
+    # capture our CLI args BEFORE truncating (bench's argparse must not see
+    # them) — truncating first silently dropped the documented arguments
+    _ARGS = sys.argv[1:]
+    sys.argv = [sys.argv[0]]
+    ap = argparse.ArgumentParser()
+    ap.add_argument("groups", type=int, nargs="?", default=2048)
+    ap.add_argument("cmds", type=int, nargs="?", default=24)
+    ap.add_argument("--top", type=int, default=5)
+    ap.add_argument("--cprofile", action="store_true",
+                    help="also run under cProfile (the old default)")
+    ap.add_argument("--trace", metavar="OUT.json", default=None,
+                    help="dump wave-phase spans as Chrome/Perfetto "
+                         "trace JSON to this path")
+    ap.add_argument("--pipeline", choices=("on", "off", "threaded"),
+                    default="on",
+                    help="wave-loop mode (matches bench.py --pipeline); "
+                         "run once with on and once with off for the "
+                         "A/B attribution tables")
+    ap.add_argument("--native", choices=("on", "off", "both"),
+                    default="on",
+                    help="native hot-loop runtime (docs/INTERNALS.md "
+                         "§18): both runs the native pass and the "
+                         "Python control back to back and prints the "
+                         "comparison tables")
+    ap.add_argument("--device", default=None,
+                    help="torch device of the coordinators (default: "
+                         "cuda)")
+    args = ap.parse_args(_ARGS)
+    main(args.groups, args.cmds, top=args.top, cprofile=args.cprofile,
+         trace=args.trace, pipeline=args.pipeline, native=args.native,
+         device=args.device)

@@ -5,7 +5,8 @@ step on the card and on the CPU over the edge inputs of
 through the step kernels, three started coordinators serving the
 client API (``ra_tpu_torch.api``) through them, and the fault-injection
 harness and the linearizability workload with their coordinators on the
-card. Every test skips without a card (the kernels
+card, and the decision bench's loop on the kernel against the plain
+step. Every test skips without a card (the kernels
 have no CPU mode). Run on a GPU machine from the repository root; the
 file imports no JAX, so it also runs where JAX is not installed:
 
@@ -289,3 +290,23 @@ def test_harness_runs_the_batch_backend_on_the_card(dev):
     assert lin.ok, lin.violations
     assert S.LAUNCHES_FULL + S.LAUNCHES_SUB > launches[0]
     assert Q.LAUNCHES == launches[1]
+
+
+def test_decision_loop_on_the_kernel_matches_the_plain_step(dev):
+    """The decision bench's loop (``ra_tpu_torch.bench.decisions_loop``)
+    through the step kernel against the same loop through the plain
+    torch-op step, both on the card: equal final state, field for field,
+    and equal per-step success sums; one kernel launch per step."""
+    from ra_tpu_torch import bench
+
+    g, t = 1000, 8
+    launches = (S.LAUNCHES_FULL, S.LAUNCHES_SUB, Q.LAUNCHES)
+    st, sums = bench.decisions_loop(g, t, dev)
+    assert (S.LAUNCHES_FULL, S.LAUNCHES_SUB, Q.LAUNCHES) == (
+        launches[0] + t, launches[1], launches[2])
+    st_p, sums_p = bench.decisions_loop(
+        g, t, dev, step=C.consensus_step_packed_scat_plain)
+    for name, a, b in zip(C.GroupState._fields, st, st_p):
+        assert torch.equal(a, b), name
+    assert torch.equal(sums, sums_p)
+    assert (sums.cpu() == g).all()
