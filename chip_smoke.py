@@ -204,6 +204,9 @@ def phase_kernel(torch, quorum, dev) -> dict:
     library_ms = median_ms(
         lambda: torch.sort(eff, dim=-1).values.gather(-1, pos)
     )
+    _, dev_us = profile_kernels(
+        torch, lambda: quorum.agreed_commit(tm, tv, tn), 50,
+        ("quorum_kernel",))
     g, p = GROUPS, PEERS
     nbytes = g * p * 4 + g * p * 1 + g * 4 + g * 4  # G*(5P+8)
     # per group: P masks, P passes of ~P/2 compare-exchanges (2 ops
@@ -214,6 +217,7 @@ def phase_kernel(torch, quorum, dev) -> dict:
     return {
         "shapes": shapes, "max_abs_err": max_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": library_ms,
+        "card_us": sum(dev_us.values()),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes,
@@ -251,7 +255,7 @@ def step_bound(C, S, state, packed, gidx, out) -> tuple:
     (all but last_applied) and the packed mailbox (and gidx) read once,
     every changed field and the egress written once; integer operations
     counted per column (decisions, P-wide rows, K ring slots) and, on
-    the active set, per group for the scattered copy."""
+    the active set, per group passed through."""
     new_state, egress = out
     nbytes = sum(t.nbytes for f, t in zip(C.GroupState._fields, state)
                  if f != "last_applied")
@@ -274,41 +278,51 @@ def phase_step(torch, C, S, dev) -> dict:
     steps = {"full": 0, "sub": 0}
     launches0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
     advanced = False
-    for p in STEP_WIDTHS:
-        for near_max in (False, True):
-            rng = np.random.default_rng(100 * p + near_max)
-            fields = cases.state_fields(rng, g, p, SUFFIX_K, near_max=near_max)
-            s_dev = C.state_from_numpy(fields, dev)
-            s_cpu = C.state_from_numpy(fields, "cpu")
-            for i in range(6 if (p, near_max) == (PEERS, False) else 2):
-                host = C.state_to_numpy(s_cpu)
-                if i % 2 == 0:
-                    kind = "full"
-                    args = (cases.packed(rng, host, np.arange(g), g),)
-                    kern = C.consensus_step_packed_scat
-                    plain = C.consensus_step_packed_scat_plain
-                else:
-                    kind = "sub"
-                    gidx = cases.active_set(rng, g, SUB_REAL, SUB_CAP)
-                    args = (cases.packed(rng, host, gidx, SUB_CAP), gidx)
-                    kern = C.consensus_step_packed_sub_scat
-                    plain = C.consensus_step_packed_sub_scat_plain
-                on_cpu = [torch.from_numpy(a) for a in args]
-                on_dev = [a.to(dev) for a in on_cpu]
-                got = kern(s_dev, *on_dev)
-                torch.cuda.synchronize()
-                want_cpu = plain(s_cpu, *on_cpu)
-                e = max(step_max_err(torch, C, got, plain(s_dev, *on_dev)),
-                        step_max_err(torch, C, got, want_cpu))
-                if e:
-                    raise AssertionError(
-                        f"{kind} step kernel != plain step at P={p}, "
-                        f"near_max={near_max}, step {i} (max err {e})")
-                err[kind] = max(err[kind], e)
-                steps[kind] += 1
-                advanced |= bool(
-                    (want_cpu[0].commit_index > s_cpu.commit_index).any())
-                s_dev, s_cpu = got[0], want_cpu[0]
+    # (G, K, P, near_max, steps): every width at the main path's G and K,
+    # then an odd G with K = 7 and an offset ring (unaligned tiles: the
+    # kernel's plain staging path)
+    runs = [(g, SUFFIX_K, p, near_max, 6 if (p, near_max) == (PEERS, False) else 2)
+            for p in STEP_WIDTHS for near_max in (False, True)]
+    runs.append((g - 3, 7, PEERS, False, 4))
+    for g, k, p, near_max, n_steps in runs:
+        rng = np.random.default_rng(100 * p + near_max if g == GROUPS else g)
+        fields = cases.state_fields(rng, g, p, k, near_max=near_max)
+        s_dev = C.state_from_numpy(fields, dev)
+        s_cpu = C.state_from_numpy(fields, "cpu")
+        if k != SUFFIX_K:
+            ring = torch.empty(g * k + 1, dtype=torch.int32, device=dev)
+            ring = ring[1:].view(g, k)
+            ring.copy_(s_dev.term_suffix)
+            s_dev = s_dev._replace(term_suffix=ring)
+        for i in range(n_steps):
+            host = C.state_to_numpy(s_cpu)
+            if i % 2 == 0:
+                kind = "full"
+                args = (cases.packed(rng, host, np.arange(g), g),)
+                kern = C.consensus_step_packed_scat
+                plain = C.consensus_step_packed_scat_plain
+            else:
+                kind = "sub"
+                gidx = cases.active_set(rng, g, SUB_REAL, SUB_CAP)
+                args = (cases.packed(rng, host, gidx, SUB_CAP), gidx)
+                kern = C.consensus_step_packed_sub_scat
+                plain = C.consensus_step_packed_sub_scat_plain
+            on_cpu = [torch.from_numpy(a) for a in args]
+            on_dev = [a.to(dev) for a in on_cpu]
+            got = kern(s_dev, *on_dev)
+            torch.cuda.synchronize()
+            want_cpu = plain(s_cpu, *on_cpu)
+            e = max(step_max_err(torch, C, got, plain(s_dev, *on_dev)),
+                    step_max_err(torch, C, got, want_cpu))
+            if e:
+                raise AssertionError(
+                    f"{kind} step kernel != plain step at G={g}, K={k}, "
+                    f"P={p}, near_max={near_max}, step {i} (max err {e})")
+            err[kind] = max(err[kind], e)
+            steps[kind] += 1
+            advanced |= bool(
+                (want_cpu[0].commit_index > s_cpu.commit_index).any())
+            s_dev, s_cpu = got[0], want_cpu[0]
     if (S.LAUNCHES_FULL - launches0[0], S.LAUNCHES_SUB - launches0[1]) != (
             steps["full"], steps["sub"]):
         raise AssertionError("the CUDA steps did not run the step kernels")
@@ -316,6 +330,7 @@ def phase_step(torch, C, S, dev) -> dict:
         raise AssertionError("no commit advanced: the inputs exercise nothing")
 
     # times, bound and device time at the main path's shape
+    g = GROUPS
     rng = np.random.default_rng(3)
     fields = cases.state_fields(rng, g, PEERS, SUFFIX_K)
     st = C.state_from_numpy(fields, dev)
@@ -332,36 +347,87 @@ def phase_step(torch, C, S, dev) -> dict:
                 sub, gidx),
     }
     out = {"steps": steps}
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for kind, (kern, plain, packed, gi) in calls.items():
         nbytes, ops = step_bound(C, S, st, packed, gi, kern())
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / ALU_OPS_PER_S * 1e3
-        # the card's own time for the step's launches (memset, pre-pass,
-        # scattered copy, step), without the host's gaps between calls
-        n_prof = 50
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n_prof):
-                kern()
-            torch.cuda.synchronize()
-        dev_us = {
-            e.key: getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0)) / n_prof
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-        }
+        # the card's own time for a step, without the host's gaps between
+        # calls; a step must be one launch of step_kernel and nothing
+        # else (no memset)
+        launched, dev_us = profile_kernels(torch, kern, 50, ("step_kernel",))
         out[kind] = {
             "max_abs_err": err[kind], "ms": median_ms(kern),
+            "host_ms": host_part_ms(S, kind, kern),
+            "card_us": sum(dev_us.values()),
             "plain_ms": median_ms(plain),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops,
-            "device_us_per_step": {k: round(v, 3) for k, v in dev_us.items()},
+            "launched": launched,
         }
     return out
+
+
+def profile_kernels(torch, fn, n: int, names: tuple) -> tuple:
+    """Run ``fn()`` ``n`` times under ``torch.profiler`` after a warm-up
+    cycle, and return (launches by kernel name, card microseconds per
+    call by kernel name). Every kernel must carry one of ``names`` (a
+    memset or any other launch fails at once), and each of ``names`` is
+    launched ``n`` times. The profiler on the H100's machine now and then
+    drops kernel records (49 of 50, or all), so a profile that is short
+    of launches is taken again, up to three times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    for _ in range(3):
+        seen = []
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: seen.extend(p.key_averages())
+                     ) as prof:
+            for cycle in range(2):
+                for _ in range(n if cycle else 5):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e for e in seen if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("ProfilerStep")]
+        launched = {e.key: e.count for e in events}
+        foreign = [k for k in launched if not any(m in k for m in names)]
+        if foreign:
+            raise AssertionError(
+                f"{n} calls launched {launched}: {foreign} is not one of {names}")
+        if all(sum(c for k, c in launched.items() if m in k) == n
+               for m in names):
+            return launched, {
+                e.key: getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0)) / n
+                for e in events}
+    raise AssertionError(
+        f"{n} calls: three profiles short of {n} launches of each of "
+        f"{names} (last {launched})")
+
+
+def host_part_ms(S, kind: str, kern, n: int = TIMED_CALLS,
+                 warmup: int = 20) -> float:
+    """The host part of a step call: the median host-clock time of
+    ``kern()`` with the C launcher swapped for its twin that builds the
+    same arguments and launches nothing."""
+    name = f"ra_step_{kind}_launch"
+    real = S._kernel(name)
+    S._fns[name] = S._kernel(f"ra_step_{kind}_host_only")
+    try:
+        for _ in range(warmup):
+            kern()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            kern()
+            times.append(time.perf_counter() - t0)
+    finally:
+        S._fns[name] = real
+    return statistics.median(times) * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -1279,7 +1345,8 @@ def main(argv=None) -> int:
     log(f"phase kernel: quorum_scan == plain on {kq['shapes']} shapes "
         f"(max_abs_err {kq['max_abs_err']}); at G={GROUPS} P={PEERS}: "
         f"kernel {kq['ms']:.6f} ms, plain {kq['plain_ms']:.6f} ms, "
-        f"sort+gather {kq['library_ms']:.6f} ms, bound {kq['bound_ms']:.6f} ms "
+        f"sort+gather {kq['library_ms']:.6f} ms, card time a call "
+        f"{kq['card_us']:.3f} us (profiler, 50 calls), bound {kq['bound_ms']:.6f} ms "
         f"({kq['bound_by']}, {kq['bytes']} B) | {card} | "
         f"{time.perf_counter() - t:.2f} s")
 
@@ -1288,18 +1355,20 @@ def main(argv=None) -> int:
     ks = phase_step(torch, C, S, dev)
     log(f"phase step: step kernels == plain step (on cuda and on cpu) in "
         f"every state field and egress row over {ks['steps']} packed steps "
-        f"with edge inputs at G={GROUPS}, P={STEP_WIDTHS}, K={SUFFIX_K} "
+        f"with edge inputs at G={GROUPS}, P={STEP_WIDTHS}, K={SUFFIX_K} and "
+        f"at G={GROUPS - 3}, P={PEERS}, K=7 from an offset ring "
         f"(max_abs_err full {ks['full']['max_abs_err']}, sub "
         f"{ks['sub']['max_abs_err']}) | {time.perf_counter() - t:.2f} s")
     for kind in ("full", "sub"):
         r = ks[kind]
         log(f"phase step, {kind} at G={GROUPS} P={PEERS} K={SUFFIX_K}"
             f"{'' if kind == 'full' else f' S={SUB_CAP} ({SUB_REAL} real)'}: "
-            f"kernel {r['ms']:.6f} ms, plain {r['plain_ms']:.6f} ms (medians "
-            f"of {TIMED_CALLS} event-bracketed calls), bound "
-            f"{r['bound_ms']:.6f} ms ({r['bound_by']}, {r['bytes']} B, "
-            f"{r['ops']} ops); card time per step by kernel (us): "
-            f"{r['device_us_per_step']} | {card}")
+            f"kernel {r['ms']:.6f} ms a call, plain {r['plain_ms']:.6f} ms "
+            f"(medians of {TIMED_CALLS} event-bracketed calls); host part "
+            f"{r['host_ms']:.6f} ms (median host clock, launch replaced by "
+            f"a no-op); card part {r['card_us']:.3f} us a step (profiler, "
+            f"50 steps: {r['launched']}); bound {r['bound_ms']:.6f} ms "
+            f"({r['bound_by']}, {r['bytes']} B, {r['ops']} ops) | {card}")
 
     # phase 4: the main path through the step kernels, then the same
     # path through the plain torch-op step for comparison; with --rounds
@@ -1383,6 +1452,7 @@ def main(argv=None) -> int:
         "bound_ms": kq["bound_ms"],
         "bound_by": kq["bound_by"],
         "library_ms": kq["library_ms"],
+        "card_us": kq["card_us"],
         "launches_by_phase": by_phase("quorum"),
     }] + [{
         "name": f"step_{kind}",
@@ -1396,6 +1466,8 @@ def main(argv=None) -> int:
         "bound_ms": ks[kind]["bound_ms"],
         "bound_by": ks[kind]["bound_by"],
         "library_ms": None,
+        "host_ms": ks[kind]["host_ms"],
+        "card_us": ks[kind]["card_us"],
         "launches_by_phase": by_phase(kind),
     } for kind in ("full", "sub")]}))
     log(json.dumps({"ok": True, "device": {

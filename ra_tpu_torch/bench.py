@@ -1031,11 +1031,9 @@ def decisions_loop(groups: int, steps: int, device=None, step=None):
     return st, torch.stack(sums)
 
 
-# the profiler's names of the launches of one step of csrc/step.cu: the
-# memset of its two [G] maps, the scatter pre-pass, the scattered copy
-# and the step (no other launch of the decision loop is a memset)
-STEP_CU_LAUNCHES = ("Memset", "scatter_index_kernel", "apply_scatters_kernel",
-                    "step_kernel")
+# the profiler's names of the launches of one step of csrc/step.cu: its
+# one cooperative kernel (no other launch of the decision loop has it)
+STEP_CU_LAUNCHES = ("step_kernel",)
 
 
 def bench_decisions(groups: int, steps: int, device=None) -> dict:

@@ -787,8 +787,7 @@ def consensus_step_packed_scat(state: GroupState, packed: torch.Tensor):
     step.check(state, packed)
     if packed.device.type == "cpu":
         return consensus_step_packed_scat_plain(state, packed)
-    changed, egress = step.launch_full(state, packed)
-    return state._replace(**changed), egress
+    return step.launch_full(state, packed)
 
 
 def consensus_step_packed_sub_scat(
@@ -803,8 +802,7 @@ def consensus_step_packed_sub_scat(
     step.check(state, packed, gidx)
     if packed.device.type == "cpu":
         return consensus_step_packed_sub_scat_plain(state, packed, gidx)
-    changed, egress = step.launch_sub(state, packed, gidx)
-    return state._replace(**changed), egress
+    return step.launch_sub(state, packed, gidx)
 
 
 # ---------------------------------------------------------------------------

@@ -152,6 +152,136 @@ def test_step_kernel_refuses_what_it_cannot_take(dev):
         C.consensus_step_packed_scat(card, wide[:, ::2])
 
 
+def _offset_ring(st):
+    """``st`` with its ring moved to a view 4 bytes past an aligned
+    allocation: the kernel's tiles of it take the plain staging path."""
+    g, k = st.term_suffix.shape
+    ring = torch.empty(g * k + 1, dtype=torch.int32,
+                       device=st.term_suffix.device)[1:].view(g, k)
+    ring.copy_(st.term_suffix)
+    return st._replace(term_suffix=ring)
+
+
+def _low_run(packed):
+    """``packed`` with its first appended run (a real group's) moved to
+    the bottom of the int32 range, where the kernel walks every ring slot
+    (``lay_run``'s wrapping branch)."""
+    packed[cases.R["a_lo"], 0] = -2**31
+    packed[cases.R["a_hi"], 0] = -2**31 + 3
+    return packed
+
+
+def _chain(dev, g, p, k, seed, steps=6):
+    """``steps`` chained steps from a seeded state (full width and active
+    set in turn, each fed the returned state), the first input's ring an
+    offset view, one run of each step at the bottom of the int32 range;
+    each step held against the plain step on the card. Returns the last
+    state."""
+    rng = np.random.default_rng(seed)
+    st = _offset_ring(C.state_from_numpy(cases.state_fields(rng, g, p, k), dev))
+    for i in range(steps):
+        host = C.state_to_numpy(st)
+        if i % 2 == 0:
+            args = (_low_run(cases.packed(rng, host, np.arange(g), g)),)
+            kern, plain = (C.consensus_step_packed_scat,
+                           C.consensus_step_packed_scat_plain)
+        else:
+            gidx = cases.active_set(rng, g, min(g // 4, 300), 512)
+            args = (_low_run(cases.packed(rng, host, gidx, 512)), gidx)
+            kern, plain = (C.consensus_step_packed_sub_scat,
+                           C.consensus_step_packed_sub_scat_plain)
+        on_card = [torch.from_numpy(a).to(dev) for a in args]
+        got = kern(st, *on_card)
+        _assert_same(*got, *plain(st, *on_card), f"g={g} k={k} step {i}")
+        st = got[0]
+    return st
+
+
+@pytest.mark.parametrize("g,k,wrap", [
+    (1000, 32, False), (1001, 32, True), (1001, 7, False), (4099, 8, True),
+])
+def test_chained_steps_on_one_scratch_match_the_plain_step(dev, g, k, wrap):
+    """Six chained steps on one persistent scratch, never cleared between
+    them, at an even and an odd G, with K = 7 (unaligned rows) and an
+    offset ring: each equals the plain step. ``wrap`` starts the epochs
+    two below 2**32, so the third launch zeroes the scratch and counts
+    from 1 again. One launch a step, no other scratch made."""
+    here = torch.device("cuda", torch.cuda.current_device())
+    scratch = S.scratch_for(here, torch.cuda.current_stream(here).cuda_stream, g)
+    if wrap:
+        scratch.epoch = 0xFFFFFFFF - 2
+    e0 = scratch.epoch
+    n0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB, len(S._scratches))
+    _chain(dev, g, 3, k, seed=g + k)
+    assert (S.LAUNCHES_FULL - n0[0], S.LAUNCHES_SUB - n0[1]) == (3, 3)
+    assert len(S._scratches) == n0[2]
+    assert scratch.epoch == (4 if wrap else e0 + 6)
+
+
+def test_two_threads_step_two_states_at_once(dev):
+    """Two Python threads step two states of the same G on cuda:0's
+    current stream at once (so they share one scratch and its epochs),
+    with a short interpreter switch interval: each gets its plain
+    result at every step."""
+    import sys
+    import threading
+
+    errors = []
+    start = threading.Barrier(2)
+
+    def worker(seed):
+        try:
+            start.wait(timeout=60)
+            _chain(dev, 2048, 3, 32, seed=seed, steps=20)
+        except BaseException as e:  # reported by the main thread
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(s,)) for s in (1, 2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors, errors
+
+
+def test_two_streams_get_two_scratches(dev):
+    """A step on another stream takes a scratch of its own, and both
+    streams' steps equal the plain step."""
+    g = 1000
+    side = torch.cuda.Stream(dev)
+    main = torch.cuda.current_stream(dev)
+    _chain(dev, g, 3, 32, seed=7, steps=2)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        _chain(dev, g, 3, 32, seed=8, steps=2)
+    main.wait_stream(side)
+    index = torch.cuda.current_device()
+    a = S._scratches[(index, main.cuda_stream, g)]
+    b = S._scratches[(index, side.cuda_stream, g)]
+    assert a is not b and a.buf.data_ptr() != b.buf.data_ptr()
+
+
+def test_a_refused_launch_raises(dev):
+    """A ring too wide for the tile in shared memory (K = 1024: 256 KB a
+    block) is refused by the card; the wrapper raises and does not fall
+    back to the plain step."""
+    rng = np.random.default_rng(11)
+    g, k = 128, 1024
+    f = cases.state_fields(rng, g, 3, k)
+    card = C.state_from_numpy(f, dev)
+    packed = torch.from_numpy(cases.packed(rng, f, np.arange(g), g)).to(dev)
+    n0 = S.LAUNCHES_FULL
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        C.consensus_step_packed_scat(card, packed)
+    assert S.LAUNCHES_FULL == n0
+
+
 def test_three_coordinators_commit_through_the_kernel(dev):
     from ra_tpu_torch.machine import SimpleMachine
     from ra_tpu_torch.protocol import USR, Command, ElectionTimeout

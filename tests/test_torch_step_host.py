@@ -3,11 +3,17 @@ torch-op step.
 
 A CUDA kernel has no CPU mode, so this test compiles the kernel source up
 to its host launchers with the host's C++ compiler behind a small shim
-(``__global__``/``__device__`` empty, ``blockIdx``/``threadIdx`` globals,
-a sequential ``atomicMax``) and with ``-fsanitize=undefined`` (a signed
-overflow or an out-of-bounds shift aborts). A host loop runs the memset,
-the scatter pre-pass, the scattered copy and the step thread by thread in
-launch order, over CPU tensors; the result must equal the plain step in
+(``__global__``/``__device__`` empty, ``blockIdx``/``threadIdx``/``gridDim``
+globals, sequential atomics, and its own ``step_async.cuh``: a bulk copy
+is a ``memcpy``, the mbarrier, block and grid barriers are no-ops) and
+with ``-fsanitize=undefined`` (a signed overflow, an out-of-bounds shift
+or a misaligned vector access aborts). A host loop runs the cooperative
+kernel's order by hand: phase A (the scatter index) for every thread of
+every block, then phase B block by block, each block's tiles in turn and
+each tile's sub-phases (stage, compute, write back) thread by thread.
+The wrapper's own host code (``ops.step.run``: the output buffer and its
+views, the pointer arrays, the persistent ``Scratch`` and its epochs)
+drives it over CPU tensors; the result must equal the plain step in
 every state field and egress row, over the edge inputs of
 ``torch_step_cases``. Both the register instances (P = 1..8) and the
 runtime-width instance (any P) run. It checks the kernel's arithmetic,
@@ -41,70 +47,114 @@ SHIM = r"""
 #define __device__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+#define __shared__
+#define __align__(x) __attribute__((aligned(x)))
 struct ShimDim { unsigned x; };
-static ShimDim blockIdx, threadIdx, blockDim;
+static ShimDim blockIdx, threadIdx, blockDim, gridDim;
+struct alignas(16) int4 { int x, y, z, w; };
 using std::max;
 using std::min;
-inline int atomicMax(int32_t* a, int32_t v) { int32_t o = *a; if (v > o) *a = v; return o; }
-inline unsigned atomicMax(uint32_t* a, uint32_t v) { uint32_t o = *a; if (v > o) *a = v; return o; }
+template <class T> inline T atomicMax(T* a, T v) { T o = *a; if (v > o) *a = v; return o; }
+"""
+
+ASYNC_SHIM = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+// the runner orders the phases and sub-phases itself
+inline void bar_init(uint64_t*, unsigned) {}
+inline void bar_arrive(uint64_t*) {}
+inline void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t*) {
+  std::memcpy(dst, src, bytes);
+}
+inline void bar_wait(uint64_t*, uint32_t) {}
+inline void block_sync() {}
+inline void grid_sync() {}
+inline void launch_dependents() {}
+inline void grid_dep_wait() {}
+template <class T> inline T load_cg(const T* p) { return *p; }
 """
 
 RUNNER = r"""
+}  // namespace
+
+#include <vector>
+
+namespace {
+
+// one block's share of phase B: its tiles in turn, each sub-phase for
+// every thread before the next (the prologue, which reads nothing of
+// the maps, runs after phase A here and before it on the card)
 template <int P>
-void host_step(const StateIn& in, const StateOut& out, const int32_t* packed,
-               const int32_t* gidx, int s, const int32_t* row_of,
-               const uint32_t* wmax, int g, int p, int k, int32_t* egress) {
-  blockDim.x = kThreads;
-  for (int j = 0; j < s; ++j) {
-    blockIdx.x = j / kThreads;
-    threadIdx.x = j % kThreads;
-    step_kernel<P>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress);
+void host_items(const Args& a, unsigned block, int32_t* tile,
+                int32_t* dst_row) {
+  uint64_t bar = 0;
+  uint32_t parity = 0;
+  std::vector<Pre<P>> pre(kThreads);
+  blockIdx.x = block;
+  for (int item = block; item < a.items; item += gridDim.x) {
+    const Tile t = tile_of(a, item);
+    for (unsigned x = 0; x < kThreads; ++x) {
+      threadIdx.x = x;
+      stage_tile(a, t, tile, &bar);
+      pre[x] = prologue<P>(a, t);
+    }
+    for (unsigned x = 0; x < kThreads; ++x) {
+      threadIdx.x = x;
+      if (t.step) {
+        step_column<P>(a, t, pre[x], tile, dst_row, &bar, parity);
+      } else {
+        pass_group<P>(a, t, pre[x], tile, dst_row, &bar, parity);
+      }
+    }
+    for (unsigned x = 0; x < kThreads; ++x) {
+      threadIdx.x = x;
+      write_back(a, t, tile, dst_row);
+    }
+    parity ^= 1;
   }
 }
 
 }  // namespace
 
-// the launch sequence of launch_all, thread by thread; runtime_width
-// forces the runtime-width instance at any p
-extern "C" int host_launch_all(const void* const* in_ptrs,
-                               void* const* out_ptrs, const void* packed_v,
-                               const void* gidx_v, void* egress_v,
-                               void* maps_v, int g, int p, int k, int s,
-                               int runtime_width) {
-  const StateIn in = state_in(in_ptrs);
-  const StateOut out = state_out(out_ptrs);
-  const int32_t* packed = static_cast<const int32_t*>(packed_v);
-  const int32_t* gidx = static_cast<const int32_t*>(gidx_v);
-  int32_t* egress = static_cast<int32_t*>(egress_v);
-  int32_t* row_of = static_cast<int32_t*>(maps_v);
-  uint32_t* wmax = reinterpret_cast<uint32_t*>(row_of + g);
-  memset(maps_v, 0, sizeof(int32_t) * 2 * static_cast<size_t>(g));
+// the cooperative launch of launch_all, on `grid` blocks, thread by
+// thread; runtime_width forces the runtime-width instance at any p
+extern "C" int host_launch(const void* const* in, void** next_in, void* out,
+                           const void* packed, const void* gidx,
+                           void* scratch, unsigned epoch, int g, int p,
+                           int k, int s, int grid, int runtime_width) {
+  Args a = make_args(in, next_in, out, packed, gidx, scratch, epoch, g, p, k,
+                     s);
   blockDim.x = kThreads;
-  for (int j = 0; j < s; ++j) {
-    blockIdx.x = j / kThreads;
-    threadIdx.x = j % kThreads;
-    scatter_index_kernel(packed, s, g, row_of, wmax);
+  gridDim.x = grid;
+  for (int b = 0; b < grid; ++b) {
+    blockIdx.x = b;
+    for (unsigned x = 0; x < kThreads; ++x) {
+      threadIdx.x = x;
+      scatter_index(a);
+    }
   }
-  blockDim.x = kApplyThreads;
-  for (int64_t t = 0; t < static_cast<int64_t>(g) * k; ++t) {
-    blockIdx.x = static_cast<unsigned>(t / kApplyThreads);
-    threadIdx.x = static_cast<unsigned>(t % kApplyThreads);
-    apply_scatters_kernel(in, out, packed, s, row_of, wmax, g, p, k,
-                          gidx != nullptr);
-  }
-  const int w = runtime_width ? 0 : p;
-  switch (w) {
-    case 1: host_step<1>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 2: host_step<2>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 3: host_step<3>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 4: host_step<4>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 5: host_step<5>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 6: host_step<6>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 7: host_step<7>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    case 8: host_step<8>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
-    default: host_step<0>(in, out, packed, gidx, s, row_of, wmax, g, p, k, egress); break;
+  std::vector<int4> store(kThreads * static_cast<size_t>(k) / 4 + 1);
+  int32_t* tile = reinterpret_cast<int32_t*>(store.data());
+  int32_t dst_row[kThreads];
+  for (int b = 0; b < grid; ++b) {
+    switch (runtime_width ? 0 : p) {
+      case 1: host_items<1>(a, b, tile, dst_row); break;
+      case 2: host_items<2>(a, b, tile, dst_row); break;
+      case 3: host_items<3>(a, b, tile, dst_row); break;
+      case 4: host_items<4>(a, b, tile, dst_row); break;
+      case 5: host_items<5>(a, b, tile, dst_row); break;
+      case 6: host_items<6>(a, b, tile, dst_row); break;
+      case 7: host_items<7>(a, b, tile, dst_row); break;
+      case 8: host_items<8>(a, b, tile, dst_row); break;
+      default: host_items<0>(a, b, tile, dst_row); break;
+    }
   }
   return 0;
+}
+
+extern "C" void host_out_offsets(int g, int p, int k, int s, long long* off) {
+  out_offsets(g, p, k, s, off);
 }
 """
 
@@ -119,6 +169,8 @@ def host_lib(tmp_path_factory):
         src = f.read()
     assert src.count(MARKER) == 1, "step.cu lost its host-launcher marker"
     (d / "cuda_runtime.h").write_text(SHIM)
+    # found beside the source before -I: it stands in for csrc's own
+    (d / "step_async.cuh").write_text(ASYNC_SHIM)
     (d / "step_host.cpp").write_text(src[:src.index(MARKER)] + RUNNER)
     lib = d / "step_host.so"
     proc = subprocess.run(
@@ -128,28 +180,36 @@ def host_lib(tmp_path_factory):
          str(d / "step_host.cpp")],
         capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
-    fn = ctypes.CDLL(str(lib)).host_launch_all
-    fn.restype = ctypes.c_int
+    dll = ctypes.CDLL(str(lib))
+    vp, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    ptrs = ctypes.POINTER(ctypes.c_void_p)
+    dll.host_launch.restype = ctypes.c_int
+    dll.host_launch.argtypes = [ptrs, ptrs, vp, vp, vp, vp, u, i, i, i, i, i, i]
+    dll.host_out_offsets.restype = None
+    dll.host_out_offsets.argtypes = [i, i, i, i, ctypes.POINTER(ctypes.c_longlong)]
+    return dll
+
+
+def _launcher(lib, full, grid, runtime_width):
+    """A stand-in for ``ra_step_full_launch`` / ``ra_step_sub_launch``
+    with their signatures, running the host loop on ``grid`` blocks."""
+    if full:
+        def fn(ins, nxt, out, packed, scratch, epoch, g, p, k, stream):
+            return lib.host_launch(ins, nxt, out, packed, None, scratch, epoch,
+                                   g, p, k, g, grid, int(runtime_width))
+    else:
+        def fn(ins, nxt, out, packed, gidx, scratch, epoch, g, p, k, s, stream):
+            return lib.host_launch(ins, nxt, out, packed, gidx, scratch, epoch,
+                                   g, p, k, s, grid, int(runtime_width))
     return fn
 
 
-def _host_step(fn, state, packed, gidx, runtime_width):
-    """The kernel's launch sequence on CPU tensors: (state, egress)."""
-    g, p = state.match_index.shape
-    k = state.term_suffix.shape[1]
-    s = packed.shape[1]
-    out = {f: torch.empty_like(getattr(state, f)) for f in S.OUT_FIELDS}
-    egress = torch.empty((len(C.EGRESS_FIELDS), s), dtype=torch.int32)
-    maps = torch.empty(2 * g, dtype=torch.int32)
-    vp = ctypes.c_void_p
-    ins = (vp * len(S.STATE_FIELDS))(*[t.data_ptr() for t in state])
-    outs = (vp * len(S.OUT_FIELDS))(*[out[f].data_ptr() for f in S.OUT_FIELDS])
-    rc = fn(ins, outs, vp(packed.data_ptr()),
-            vp(gidx.data_ptr() if gidx is not None else 0),
-            vp(egress.data_ptr()), vp(maps.data_ptr()), g, p, k, s,
-            int(runtime_width))
-    assert rc == 0
-    return state._replace(**out), egress
+def _host_step(lib, state, packed, gidx, scratch, runtime_width, grid=3):
+    """One step through the wrapper's host code and the kernel's code on
+    CPU tensors: (state, egress)."""
+    S.check(state, packed, gidx)
+    fn = _launcher(lib, gidx is None, grid, runtime_width)
+    return S.run(fn, state, packed, gidx, scratch, 0)
 
 
 def _assert_same(got, want, where):
@@ -175,19 +235,103 @@ def test_kernel_code_matches_the_plain_step(host_lib, p, runtime_width):
             rng = np.random.default_rng(10 * p + k + near_max)
             st = C.state_from_numpy(
                 cases.state_fields(rng, g, p, k, near_max=near_max), "cpu")
+            scratch = S.Scratch(g, "cpu")
             for rnd in range(2):
                 where = f"p={p} k={k} near_max={near_max} round {rnd}"
                 full = torch.from_numpy(
                     cases.packed(rng, C.state_to_numpy(st), np.arange(g), g))
                 want = C.consensus_step_packed_scat_plain(st, full)
-                _assert_same(_host_step(host_lib, st, full, None, runtime_width),
-                             want, where + " full")
+                _assert_same(_host_step(host_lib, st, full, None, scratch,
+                                        runtime_width), want, where + " full")
                 st = want[0]
                 gidx = cases.active_set(rng, g, 40, 64)
                 sub = torch.from_numpy(
                     cases.packed(rng, C.state_to_numpy(st), gidx, 64))
                 gidx = torch.from_numpy(gidx)
                 want = C.consensus_step_packed_sub_scat_plain(st, sub, gidx)
-                _assert_same(_host_step(host_lib, st, sub, gidx, runtime_width),
-                             want, where + " sub")
+                _assert_same(_host_step(host_lib, st, sub, gidx, scratch,
+                                        runtime_width), want, where + " sub")
                 st = want[0]
+
+
+def _low_run(packed):
+    """``packed`` with its first appended run (a real group's) moved to
+    the bottom of the int32 range, where the kernel walks every ring slot
+    (``lay_run``'s wrapping branch)."""
+    packed[cases.R["a_lo"], 0] = -2**31
+    packed[cases.R["a_hi"], 0] = -2**31 + 3
+    return packed
+
+
+def _offset_ring(st):
+    """``st`` with its ring moved to a view 4 bytes past an aligned
+    allocation: no tile of it is 16-byte aligned."""
+    g, k = st.term_suffix.shape
+    ring = torch.empty(g * k + 1, dtype=torch.int32)[1:].view(g, k)
+    ring.copy_(st.term_suffix)
+    return st._replace(term_suffix=ring)
+
+
+@pytest.mark.parametrize("g,p,k,grid,runtime_width,wrap", [
+    (96, 3, 32, 2, False, False),
+    (96, 3, 32, 2, False, True),   # across the epoch wrap
+    (77, 3, 7, 3, False, False),   # odd G and K: the plain staging path
+    (77, 3, 8, 1, False, True),    # odd G, one block, across the wrap
+    (77, 9, 7, 4, True, True),     # runtime width, odd G and K, the wrap
+])
+def test_chained_steps_reuse_one_scratch(host_lib, g, p, k, grid,
+                                         runtime_width, wrap):
+    """Six chained steps (full width and active set in turn, each fed the
+    returned state) on one scratch that is never cleared between them:
+    every step equals the plain step (one run of each step sits at the
+    bottom of the int32 range). ``wrap`` starts the epochs two
+    below 2**32, so the third launch wraps: the scratch is zeroed once
+    and the count starts again at 1. The first input's ring is an offset
+    view, so the first tiles take the plain (unaligned) staging path."""
+    rng = np.random.default_rng(1000 * g + 10 * p + k + wrap)
+    st = _offset_ring(C.state_from_numpy(cases.state_fields(rng, g, p, k), "cpu"))
+    scratch = S.Scratch(g, "cpu")
+    if wrap:
+        scratch.epoch = 0xFFFFFFFF - 2
+    epochs = []
+    for i in range(6):
+        host = C.state_to_numpy(st)
+        if i % 2 == 0:
+            args = (torch.from_numpy(
+                _low_run(cases.packed(rng, host, np.arange(g), g))),)
+            plain = C.consensus_step_packed_scat_plain
+        else:
+            gidx = cases.active_set(rng, g, 30, 64)
+            args = (torch.from_numpy(_low_run(cases.packed(rng, host, gidx, 64))),
+                    torch.from_numpy(gidx))
+            plain = C.consensus_step_packed_sub_scat_plain
+        want = plain(st, *args)
+        got = _host_step(host_lib, st, args[0], args[1] if len(args) > 1 else None,
+                         scratch, runtime_width, grid)
+        _assert_same(got, want, f"step {i}")
+        epochs.append(scratch.epoch)
+        st = got[0]
+    if wrap:
+        assert epochs == [0xFFFFFFFE, 0xFFFFFFFF, 1, 2, 3, 4]
+    else:
+        assert epochs == [1, 2, 3, 4, 5, 6]
+
+
+def test_outputs_share_one_buffer_at_the_kernels_offsets(host_lib):
+    """``out_views`` cuts the fields where ``csrc/step.cu``'s
+    ``out_offsets`` puts them, the ring first (aligned as the buffer)."""
+    g, p, k, s = 77, 5, 7, 64
+    buf = torch.empty(S.out_words(g, p, k, s), dtype=torch.int32)
+    outs, egress = S.out_views(buf, g, p, k, s)
+    off = (ctypes.c_longlong * 16)()
+    host_lib.host_out_offsets(g, p, k, s, off)
+    base = buf.data_ptr()
+    assert [t.data_ptr() - base for t in outs + (egress,)] == list(off)
+    assert off[S.OUT_FIELDS.index("term_suffix")] == 0
+    end = max(o + t.numel() * t.element_size() for o, t in zip(off, outs + (egress,)))
+    assert end <= buf.numel() * 4
+    shapes = {"match_index": (g, p), "next_index": (g, p), "votes": (g, p),
+              "pre_votes": (g, p), "term_suffix": (g, k)}
+    for f, t in zip(S.OUT_FIELDS, outs):
+        assert t.shape == shapes.get(f, (g,)) and t.is_contiguous(), f
+    assert egress.shape == (17, s)
