@@ -10,7 +10,11 @@ It builds the hand-written CUDA kernels from ``ra_tpu_torch/csrc/`` (one
 version on the card: the quorum scan (``quorum.cu``) and the fused step
 kernels (``step.cu``, full width and active set) over edge inputs at
 P = 1..16 and 33 (the register instances and the runtime-width one),
-against the plain torch-op step on the card and on the CPU. Then it
+and at an odd G from an unaligned ring, against the plain torch-op step
+on the card and on the CPU; a profile of 50 steps must show each step as
+one launch of ``step_kernel`` and nothing else (no memset), and gives
+the card time a step, beside the host part of a call (the launch
+replaced by a no-op) and the quorum kernel's card time a call. Then it
 runs the main path, the durable replicated write of the batch backend:
 three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
 WAL-backed logs, cooperative pipelined stepping, through the step
@@ -273,7 +277,6 @@ def step_bound(C, S, state, packed, gidx, out) -> tuple:
 
 def phase_step(torch, C, S, dev) -> dict:
     cases = step_cases()
-    g = GROUPS
     err = {"full": 0, "sub": 0}
     steps = {"full": 0, "sub": 0}
     launches0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
@@ -281,9 +284,10 @@ def phase_step(torch, C, S, dev) -> dict:
     # (G, K, P, near_max, steps): every width at the main path's G and K,
     # then an odd G with K = 7 and an offset ring (unaligned tiles: the
     # kernel's plain staging path)
-    runs = [(g, SUFFIX_K, p, near_max, 6 if (p, near_max) == (PEERS, False) else 2)
+    runs = [(GROUPS, SUFFIX_K, p, near_max,
+             6 if (p, near_max) == (PEERS, False) else 2)
             for p in STEP_WIDTHS for near_max in (False, True)]
-    runs.append((g - 3, 7, PEERS, False, 4))
+    runs.append((GROUPS - 3, 7, PEERS, False, 4))
     for g, k, p, near_max, n_steps in runs:
         rng = np.random.default_rng(100 * p + near_max if g == GROUPS else g)
         fields = cases.state_fields(rng, g, p, k, near_max=near_max)
@@ -373,9 +377,9 @@ def profile_kernels(torch, fn, n: int, names: tuple) -> tuple:
     cycle, and return (launches by kernel name, card microseconds per
     call by kernel name). Every kernel must carry one of ``names`` (a
     memset or any other launch fails at once), and each of ``names`` is
-    launched ``n`` times. The profiler on the H100's machine now and then
-    drops kernel records (49 of 50, or all), so a profile that is short
-    of launches is taken again, up to three times."""
+    launched ``n`` times. The profiler on the H100 now and then drops
+    kernel records (49 of 50, or all), so a profile that is short of
+    launches is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 

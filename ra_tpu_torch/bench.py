@@ -339,13 +339,13 @@ def bench_pipeline(groups: int, cmds: int, wal: bool = True,
             cmd = Command(kind=USR, data=1, reply_mode="noreply")
             wave_t: list = []
             base0 = base[sample].copy()
-            if pipeline == "threaded":
-                # real-time election noops can advance the applied-index
-                # floor past ``base`` before every user command of the
-                # wave has applied, so the floor alone cannot terminate
-                # a threaded pass: the machine mirrors must agree too
-                by = coords[0].by_name
-                mstate0 = [by[n].machine_state for n in names]
+            # election noops (a re-election under host load, in any
+            # pipeline mode) can advance the applied-index floor past
+            # ``base`` before every user command of the wave has
+            # applied, so the floor alone cannot terminate a pass: the
+            # machine mirrors must agree too
+            by = coords[0].by_name
+            mstate0 = [by[n].machine_state for n in names]
             for w in range(n_waves):
                 base.__iadd__(1)
                 wave_t.append(time.perf_counter())
@@ -374,7 +374,7 @@ def bench_pipeline(groups: int, cmds: int, wal: bool = True,
                             loaded_hist.record_seconds(now - wave_t[k])
                         done_w[s] = newly[s]
                 if all((c._applied_np[:groups] >= base).all() for c in coords):
-                    if pipeline != "threaded" or all(
+                    if all(
                         by[names[g]].machine_state - mstate0[g] >= n_waves
                         for g in range(groups)
                     ):
@@ -495,20 +495,16 @@ def bench_pipeline(groups: int, cmds: int, wal: bool = True,
                 rot_names = [f"g{g}" for g in rot]
                 base[rot] += 1
                 done = np.zeros(len(rot), bool)
-                # threaded mode: completion must read the MACHINE
-                # mirrors, not the applied-index floor — live-thread
-                # re-elections append noops that advance the floor
-                # without advancing ``base``, so the floor check reads
-                # complete one command early per churn event and the
-                # wave's commands drift past the phase boundary (they
-                # then land inside a throughput pass and read as a
-                # duplicated command in its +cmds state check; the
-                # same inflation is why run_wave checks mirrors since
-                # the threaded-completion fix)
-                ms0 = (
-                    [by0[n].machine_state for n in rot_names]
-                    if pipeline == "threaded" else None
-                )
+                # completion must read the MACHINE mirrors, not the
+                # applied-index floor — re-elections (live threads, or a
+                # host stall in the cooperative modes) append noops that
+                # advance the floor without advancing ``base``, so the
+                # floor check reads complete one command early per churn
+                # event and the wave's commands drift past the phase
+                # boundary (they then land inside a throughput pass and
+                # read as a duplicated command in its +cmds state check;
+                # the same inflation is why run_wave checks mirrors)
+                ms0 = [by0[n].machine_state for n in rot_names]
                 t0 = time.perf_counter()
                 coords[0].deliver_commands(
                     rot_names, cmd._replace(ts=time.monotonic_ns())
@@ -522,15 +518,10 @@ def bench_pipeline(groups: int, cmds: int, wal: bool = True,
                         # fsync thread — hand it the core immediately
                         time.sleep(0)
                     now = time.perf_counter()
-                    if ms0 is not None:
-                        newly = ~done & np.array([
-                            by0[rot_names[j]].machine_state - ms0[j] >= 1
-                            for j in range(len(rot))
-                        ])
-                    else:
-                        newly = ~done & (
-                            coords[0]._applied_np[rot] >= base[rot]
-                        )
+                    newly = ~done & np.array([
+                        by0[rot_names[j]].machine_state - ms0[j] >= 1
+                        for j in range(len(rot))
+                    ])
                     if newly.any():
                         h_unloaded.record_seconds(now - t0, count=int(newly.sum()))
                         done |= newly

@@ -35,20 +35,24 @@
 //   Phase B, tiles of kThreads rows, blocks looping over them: the tiles
 //     of step columns, then (active set only) the chunks of groups that
 //     pass through. For each tile:
-//     1. stage: the tile's ring rows go into shared memory, one 1-D bulk
-//        copy of the contiguous rows (full width, pass-through) or one
-//        per gathered row (active set), completing on the block's
-//        mbarrier; where an address or a size is not 16-byte aligned the
-//        block loads the rows with plain coalesced loads instead;
-//     2. compute: one thread per column (or group) loads its mailbox
-//        column and its scalars while the copy runs, waits on the
-//        barrier, lays its group's appended run over its row of the tile
-//        and runs the step, reading the two ring slots it needs (the
+//     1. stage and prologue: the tile's ring rows go into shared memory,
+//        one 1-D bulk copy of the contiguous rows (full width,
+//        pass-through) or one per gathered row (active set), completing
+//        on the block's mbarrier (where an address or a size is not
+//        16-byte aligned the block loads the rows with plain coalesced
+//        loads instead); each thread reads what needs no map: its mailbox
+//        column, its group's scalars and (P <= 8) its P-wide rows into
+//        registers. A block does both for its first tile before the grid
+//        barrier, beside phase A;
+//     2. compute: a thread reads its group's map entries (and its run's
+//        bounds), waits on the barrier, lays the run over its row of the
+//        tile and runs the step, reading the two ring slots it needs (the
 //        previous index's, the agreed index's) from shared memory and
 //        writing the tail slot an accepted batch changes there; a pass-
-//        through thread writes its group's scattered scalars;
+//        through thread writes its group's scattered scalars and P-wide
+//        rows;
 //     3. write back: the tile's rows go to the output ring in coalesced
-//        stores (and, for a pass-through chunk, the P-wide rows).
+//        16-byte stores.
 //     On the active set a group that a real column writes is written by
 //     that column only, every other group by its pass-through chunk;
 //     pad columns read the clamped row and drop their writes.
@@ -59,10 +63,10 @@
 //   reads with no per-thread array.
 // No state tensor is written in place: every field the step changes goes
 // to a fresh output, the others pass through. The step reads only the
-// inputs, the maps and its own tile, never the outputs it writes. (A
-// first version read K uncoalesced ring slots per thread and was bound
-// by load latency at 12-17 us a step on the H100; the second staged the
-// scattered ring with a copy kernel, four launches a step.)
+// inputs, the maps and its own tile, never the outputs it writes. The
+// ring goes through shared memory because a thread reading its K ring
+// slots from device memory, uncoalesced, is bound by load latency
+// (12-17 us a step on the H100).
 //
 // The plain version's arithmetic is reproduced bit for bit:
 // - torch's and JAX's '%' floors, C++'s truncates: every ring slot goes
@@ -80,8 +84,13 @@
 // and 24 int32 mailbox rows, and writes 10 int32 scalars, 2 int32 and 2
 // bool P-wide rows, the ring and 17 int32 egress rows: 586 bytes at P=3,
 // K=32, 6.0 MB at G=10240, about 1.8 us. The integer work (a few hundred
-// operations a group, most of them the K ring slots) is far below the
-// card's rate. chip_smoke.py recounts the bound from its inputs.
+// operations a group) is far below the card's rate. chip_smoke.py
+// recounts the bound from its inputs. What holds the kernel above it is
+// latency: one thread a group is 10240 threads, about one warp per
+// scheduler of the 132 SMs, each thread a chain of dependent loads (the
+// maps, then its run's bounds) and a few hundred dependent instructions,
+// behind a grid barrier. The design moves every load that needs no map
+// ahead of the barrier and keeps per-slot division out of the loops.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -91,8 +100,10 @@
 
 namespace {
 
-// rows a tile and threads a block: 64-thread blocks spread G = 10240
-// over every SM (160 tiles); the ring tile is 64*K int32 (8 KB at K=32)
+// rows a tile and threads a block: G = 10240 makes 80 tiles (the active
+// set's 2048 columns 16, beside 80 pass-through chunks), few blocks to
+// wait at the grid barrier; the ring tile is 128*K int32 (16 KB at
+// K=32), so shared memory takes K up to about 450
 constexpr int kThreads = 128;
 
 // ops/consensus.py constants
@@ -909,7 +920,7 @@ __device__ __forceinline__ void write_back(const Args& a, const Tile& t,
 // The step: one cooperative launch, phase A, the grid barrier, phase B
 // (the file's head says what each does). A block stages its first tile
 // and reads its prologue before the barrier, beside phase A.
-template <int P, bool kCoop = true>
+template <int P>
 __global__ void __launch_bounds__(kThreads) step_kernel(const Args a) {
   extern __shared__ __align__(16) int32_t tile[];  // kThreads * K
   __shared__ __align__(8) uint64_t bar;
@@ -923,12 +934,8 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const Args a) {
     stage_tile(a, t, tile, &bar);
     pre = prologue<P>(a, t);
   }
-  if constexpr (kCoop) {
-    scatter_index(a);
-    grid_sync();  // the maps are complete
-  } else {
-    grid_dep_wait();  // index_kernel has filled the maps
-  }
+  scatter_index(a);
+  grid_sync();  // the maps are complete
   uint32_t parity = 0;
   for (int item = first; item < a.items; item += gridDim.x) {
     const Tile t = tile_of(a, item);
@@ -946,13 +953,6 @@ __global__ void __launch_bounds__(kThreads) step_kernel(const Args a) {
     block_sync();  // the tile and dst_row are free for the next item
     parity ^= 1;
   }
-}
-
-// The alternative design's first kernel (programmatic dependent launch):
-// phase A alone, then step_kernel<P, false> waits on it.
-__global__ void __launch_bounds__(kThreads) index_kernel(const Args a) {
-  scatter_index(a);
-  launch_dependents();
 }
 
 StateIn state_in(const void* const* p) {
@@ -1113,7 +1113,7 @@ cudaError_t coresident_blocks(const void* fn, int P, size_t smem, int dev,
 }
 
 template <int P>
-cudaError_t launch_step(Args& a, cudaStream_t stream, bool ex = false) {
+cudaError_t launch_step(Args& a, cudaStream_t stream) {
   const void* fn = reinterpret_cast<const void*>(&step_kernel<P>);
   const size_t smem = sizeof(int32_t) * kThreads * static_cast<size_t>(a.k);
   int dev = 0;
@@ -1124,78 +1124,31 @@ cudaError_t launch_step(Args& a, cudaStream_t stream, bool ex = false) {
   if (err != cudaSuccess) return err;
   if (most == 0) return cudaErrorCooperativeLaunchTooLarge;
   const dim3 grid(a.items < most ? a.items : most);
-  if (ex) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = grid;
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    return cudaLaunchKernelEx(&cfg, step_kernel<P, true>, a);
-  }
   void* args[] = {&a};
   return cudaLaunchCooperativeKernel(fn, grid, dim3(kThreads), args, smem,
                                      stream);
 }
 
-// the alternative: index_kernel, then step_kernel<P, false> launched
-// with programmatic stream serialization (it may start while
-// index_kernel drains, and waits on it before phase B)
-template <int P>
-cudaError_t launch_step_pdl(Args& a, cudaStream_t stream) {
-  const size_t smem = sizeof(int32_t) * kThreads * static_cast<size_t>(a.k);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        step_kernel<P, false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  index_kernel<<<(a.s + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(a.items);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, step_kernel<P, false>, a);
-}
-
 int launch_all(const void* const* in, void** next_in, void* out,
                const void* packed, const void* gidx, void* scratch,
                unsigned epoch, int g, int p, int k, int s,
-               cudaStream_t stream, int design = 0) {
+               cudaStream_t stream) {
   if (g <= 0 || k <= 0 || s <= 0 || p < 1 || epoch == 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a = make_args(in, next_in, out, packed, gidx, scratch, epoch, g, p,
                      k, s);
   cudaError_t err;
-  if (design == 1) {
-    err = p == 3 ? launch_step_pdl<3>(a, stream) : cudaErrorInvalidValue;
-  } else if (design == 2) {
-    err = p == 3 ? launch_step<3>(a, stream, true) : cudaErrorInvalidValue;
-  } else {
-    switch (p) {
-      case 1: err = launch_step<1>(a, stream); break;
-      case 2: err = launch_step<2>(a, stream); break;
-      case 3: err = launch_step<3>(a, stream); break;
-      case 4: err = launch_step<4>(a, stream); break;
-      case 5: err = launch_step<5>(a, stream); break;
-      case 6: err = launch_step<6>(a, stream); break;
-      case 7: err = launch_step<7>(a, stream); break;
-      case 8: err = launch_step<8>(a, stream); break;
-      default: err = launch_step<0>(a, stream); break;
-    }
+  switch (p) {
+    case 1: err = launch_step<1>(a, stream); break;
+    case 2: err = launch_step<2>(a, stream); break;
+    case 3: err = launch_step<3>(a, stream); break;
+    case 4: err = launch_step<4>(a, stream); break;
+    case 5: err = launch_step<5>(a, stream); break;
+    case 6: err = launch_step<6>(a, stream); break;
+    case 7: err = launch_step<7>(a, stream); break;
+    case 8: err = launch_step<8>(a, stream); break;
+    default: err = launch_step<0>(a, stream); break;
   }
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the refused launch's error
@@ -1255,34 +1208,4 @@ extern "C" int ra_step_full_host_only(const void* const* in, void** next_in,
   (void)stream;
   make_args(in, next_in, out, packed, nullptr, scratch, epoch, g, p, k, g);
   return 0;
-}
-
-// The alternative design, two launches (index_kernel, then the step with
-// programmatic dependent launch), at P = 3 only: for timing it against
-// the cooperative launch.
-extern "C" int ra_step_full_launch_pdl(const void* const* in, void** next_in,
-                                       void* out, const void* packed,
-                                       void* scratch, unsigned epoch, int g,
-                                       int p, int k, void* stream) {
-  return launch_all(in, next_in, out, packed, nullptr, scratch, epoch, g, p,
-                    k, g, static_cast<cudaStream_t>(stream), 1);
-}
-
-extern "C" int ra_step_sub_launch_pdl(const void* const* in, void** next_in,
-                                      void* out, const void* packed,
-                                      const void* gidx, void* scratch,
-                                      unsigned epoch, int g, int p, int k,
-                                      int s, void* stream) {
-  return launch_all(in, next_in, out, packed, gidx, scratch, epoch, g, p, k,
-                    s, static_cast<cudaStream_t>(stream), 1);
-}
-
-// The cooperative launch through cudaLaunchKernelEx, at P = 3 only: for
-// timing the host side of the two launch calls.
-extern "C" int ra_step_full_launch_ex(const void* const* in, void** next_in,
-                                      void* out, const void* packed,
-                                      void* scratch, unsigned epoch, int g,
-                                      int p, int k, void* stream) {
-  return launch_all(in, next_in, out, packed, nullptr, scratch, epoch, g, p,
-                    k, g, static_cast<cudaStream_t>(stream), 2);
 }

@@ -73,15 +73,6 @@ __device__ __forceinline__ void grid_sync() {
   cooperative_groups::this_grid().sync();
 }
 
-// programmatic dependent launch: the primary lets its dependent start,
-// the dependent waits for the primary's completion and its writes
-__device__ __forceinline__ void launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void grid_dep_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
 template <class T>
 __device__ __forceinline__ T load_cg(const T* p) {
   return __ldcg(p);

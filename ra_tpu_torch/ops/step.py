@@ -217,7 +217,7 @@ def out_views(buf: torch.Tensor, g: int, p: int, k: int, s: int):
     scalars, match and next, the egress, then the bool rows. Returns
     (the 15 changed fields in ``OUT_FIELDS`` order, the (17, S) egress).
     One ``split_with_sizes`` and six views: each torch call here costs
-    about a microsecond of the step call's host time."""
+    microseconds of the step call's host time."""
     gp = g * p
     parts = buf.split_with_sizes(
         (g * k,) + (g,) * 10 + (gp, gp, 17 * s, (2 * gp + 3) // 4))

@@ -376,6 +376,67 @@ BENCH_EDITED_LINES = {
          "            \"device\": dev_info,\n"
          "            \"kernel_launches\": _launches_since(launches0),\n"
          "            \"passes_completed\": passes_completed,\n"),
+        # the cooperative modes wait for a wave's commands on the
+        # machine mirrors too: on the H100 a re-election under host load
+        # (a kernel build in the process, a stalled host) let a latency
+        # wave end on an election noop and its commands land in the
+        # first pass (+4 against +3 at 64 x 3, with either design of
+        # the step kernel); the +cmds state check is unchanged
+        ("            base0 = base[sample].copy()\n"
+         "            if pipeline == \"threaded\":\n"
+         "                # real-time election noops can advance the applied-index\n"
+         "                # floor past ``base`` before every user command of the\n"
+         "                # wave has applied, so the floor alone cannot terminate\n"
+         "                # a threaded pass: the machine mirrors must agree too\n"
+         "                by = coords[0].by_name\n"
+         "                mstate0 = [by[n].machine_state for n in names]\n",
+         "            base0 = base[sample].copy()\n"
+         "            # election noops (a re-election under host load, in any\n"
+         "            # pipeline mode) can advance the applied-index floor past\n"
+         "            # ``base`` before every user command of the wave has\n"
+         "            # applied, so the floor alone cannot terminate a pass: the\n"
+         "            # machine mirrors must agree too\n"
+         "            by = coords[0].by_name\n"
+         "            mstate0 = [by[n].machine_state for n in names]\n"),
+        ("                    if pipeline != \"threaded\" or all(\n",
+         "                    if all(\n"),
+        ("                # threaded mode: completion must read the MACHINE\n"
+         "                # mirrors, not the applied-index floor — live-thread\n"
+         "                # re-elections append noops that advance the floor\n"
+         "                # without advancing ``base``, so the floor check reads\n"
+         "                # complete one command early per churn event and the\n"
+         "                # wave's commands drift past the phase boundary (they\n"
+         "                # then land inside a throughput pass and read as a\n"
+         "                # duplicated command in its +cmds state check; the\n"
+         "                # same inflation is why run_wave checks mirrors since\n"
+         "                # the threaded-completion fix)\n"
+         "                ms0 = (\n"
+         "                    [by0[n].machine_state for n in rot_names]\n"
+         "                    if pipeline == \"threaded\" else None\n"
+         "                )\n",
+         "                # completion must read the MACHINE mirrors, not the\n"
+         "                # applied-index floor — re-elections (live threads, or a\n"
+         "                # host stall in the cooperative modes) append noops that\n"
+         "                # advance the floor without advancing ``base``, so the\n"
+         "                # floor check reads complete one command early per churn\n"
+         "                # event and the wave's commands drift past the phase\n"
+         "                # boundary (they then land inside a throughput pass and\n"
+         "                # read as a duplicated command in its +cmds state check;\n"
+         "                # the same inflation is why run_wave checks mirrors)\n"
+         "                ms0 = [by0[n].machine_state for n in rot_names]\n"),
+        ("                    if ms0 is not None:\n"
+         "                        newly = ~done & np.array([\n"
+         "                            by0[rot_names[j]].machine_state - ms0[j] >= 1\n"
+         "                            for j in range(len(rot))\n"
+         "                        ])\n"
+         "                    else:\n"
+         "                        newly = ~done & (\n"
+         "                            coords[0]._applied_np[rot] >= base[rot]\n"
+         "                        )\n",
+         "                    newly = ~done & np.array([\n"
+         "                        by0[rot_names[j]].machine_state - ms0[j] >= 1\n"
+         "                        for j in range(len(rot))\n"
+         "                    ])\n"),
     ],
     "bench_reads": [
         # device=, as in bench_pipeline; the unused numpy import goes

@@ -70,8 +70,6 @@ inline void bulk_copy(void* dst, const void* src, unsigned bytes, uint64_t*) {
 inline void bar_wait(uint64_t*, uint32_t) {}
 inline void block_sync() {}
 inline void grid_sync() {}
-inline void launch_dependents() {}
-inline void grid_dep_wait() {}
 template <class T> inline T load_cg(const T* p) { return *p; }
 """
 
