@@ -42,7 +42,18 @@ control) at its defaults; every state check of the bench must hold, and
 each bench's JSON line is printed. Then the operator tools run on the
 card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
 and the decision bench's loop on the step kernel is held against the
-same loop on the plain step at 10240 groups.
+same loop on the plain step at 10240 groups. Phase mesh last drives the
+multi-device path and the graft entry: ``graft_entry.entry()`` on the
+card (its quorum scan through ``quorum.cu``) against the same on the
+CPU; the step over four slices of the group axis on ``cuda:0`` against
+the unsharded step kernel and the plain step at 10240 groups, chained,
+with scatter rows at every slice edge and pads; ``graft_entry.dryrun_multichip(4)`` (its four
+phases over a four-slice mesh on ``cuda:0``); and the main path's 10240
+groups x 3 replicas, WAL-backed, through coordinators over a four-slice
+mesh (four measured waves, as phase main), every command checked on all
+three replicas, one step-kernel launch a slice a step and no active set.
+One card makes a mesh slices of that card: this checks the path, not
+scaling.
 
 Options (the defaults are the smoke run):
 
@@ -457,11 +468,20 @@ def open_storage(coords, node_names, workdir: str, storage: list) -> None:
         storage.append((tables, w, d))
 
 
+def state_tensors(C, state) -> list:
+    """Every tensor of a coordinator's state, of each slice when the
+    state is cut over a mesh."""
+    shards = state.shards if isinstance(state, C.ShardedState) else (state,)
+    return [f for st in shards for f in st]
+
+
 def phase_main(torch, C, S, dev, workdir: str, tag: str,
-               use_kernels: bool = True) -> dict:
+               use_kernels: bool = True, mesh=None) -> dict:
     """The main path with coordinators named ``tag``0..2: through the
     step kernels, or (``use_kernels=False``) through the plain torch-op
-    step for comparison."""
+    step for comparison; with ``mesh`` (a device list) each
+    coordinator's groups are cut into that many slices, each stepped at
+    full width (one step-kernel launch a slice a step, no active set)."""
     from ra_tpu_torch import bench, obs
     from ra_tpu_torch.models.bench_machine import BenchMachine
     from ra_tpu_torch.protocol import Command, ElectionTimeout, USR
@@ -499,9 +519,12 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
         setattr(C, name, timed(kind, fn))
 
     node_names = [f"{tag}{i}" for i in range(3)]
+    where = {"mesh": mesh} if mesh else {"device": dev}
+    slices = len(mesh) if mesh else 1
+    t_setup = time.perf_counter()
     coords = [
         BatchCoordinator(n, capacity=g_n, num_peers=PEERS,
-                         suffix_k=SUFFIX_K, idle_sleep_s=0, device=dev)
+                         suffix_k=SUFFIX_K, idle_sleep_s=0, **where)
         for n in node_names
     ]
     storage = []
@@ -515,9 +538,10 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
                 for g in range(g_n)
             ])
         for c in coords:
-            for f in c.state:
-                if f.device.type != "cuda":
-                    raise AssertionError("coordinator state is not on cuda")
+            for f in state_tensors(C, c.state):
+                if f.device != dev:
+                    raise AssertionError(f"coordinator state is not on {dev}")
+        t_setup = time.perf_counter() - t_setup
 
         def step_all() -> bool:
             worked = False
@@ -546,6 +570,14 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
         while not all(by0[n].role == C.R_LEADER for n in names):
             if time.time() > deadline:
                 raise TimeoutError("leader election incomplete")
+            if not step_all():
+                time.sleep(0.001)
+        # the floor below is exact once every replica has applied its
+        # leader's election noop (index 1 of the fresh logs): a settle
+        # can end while a noop's WAL write is still in flight
+        while not all((c._applied_np[:g_n] >= 1).all() for c in coords):
+            if time.time() > deadline:
+                raise TimeoutError("election noops not applied")
             if not step_all():
                 time.sleep(0.001)
         settle()
@@ -613,27 +645,38 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
             if not np.array_equal(base[i], base[0]):
                 raise AssertionError(f"coordinator {i}: election floor off")
             if not np.array_equal(applied, base[0] + done[0]):
-                raise AssertionError(f"coordinator {i}: applied index off")
+                off = np.flatnonzero(applied != base[0] + done[0])
+                st = C.state_to_numpy(c.state)
+                raise AssertionError(
+                    f"coordinator {i}: applied index off in {len(off)} "
+                    f"groups (first {off[:8].tolist()}): applied - floor "
+                    f"{(applied[off] - base[0][off]).tolist()[:8]}, want "
+                    f"{done[0]}; term {st['current_term'][off].tolist()[:8]}, "
+                    f"commit {st['commit_index'][off].tolist()[:8]}, machine "
+                    f"{[c.by_name[names[g]].machine_state for g in off[:8]]}")
             ms = np.array([c.by_name[n].machine_state for n in names])
             if not (ms == done[0]).all():
                 raise AssertionError(
                     f"coordinator {i}: machine state off "
                     f"(min {ms.min()}, max {ms.max()}, want {done[0]})")
-            dev_commit = c.state.commit_index[:g_n].cpu().numpy()
+            dev_commit = C.state_to_numpy(c.state)["commit_index"][:g_n]
             if not (dev_commit >= applied).all():
                 raise AssertionError(f"coordinator {i}: commit below apply")
-            for f in c.state:
-                if f.device.type != "cuda":
-                    raise AssertionError("coordinator state left cuda")
+            for f in state_tensors(C, c.state):
+                if f.device != dev:
+                    raise AssertionError(f"coordinator state left {dev}")
         steps = sum(c.steps for c in coords) - counted0[0]
         sub_steps = sum(c.sub_steps for c in coords) - counted0[1]
+        if mesh and sub_steps:
+            raise AssertionError(f"{sub_steps} active-set steps over a mesh")
         if use_kernels:
-            # every step launched its kernel, and no step took the plain
-            # route (whose quorum scan would launch quorum.cu)
-            if (launches["full"], launches["sub"]) != (steps - sub_steps,
-                                                       sub_steps):
+            # every step launched its kernel (once a slice), and no step
+            # took the plain route (whose quorum scan would launch
+            # quorum.cu)
+            if (launches["full"], launches["sub"]) != (
+                    slices * (steps - sub_steps), sub_steps):
                 raise AssertionError(
-                    f"step kernel launches {launches} != steps "
+                    f"step kernel launches {launches} != {slices} x steps "
                     f"{steps - sub_steps} full, {sub_steps} sub")
             if launches["quorum"]:
                 raise AssertionError("the kernel path launched quorum.cu")
@@ -650,6 +693,7 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
             for (st, kind), ev in sorted(step_events.items())
         }
         return {
+            "setup_s": t_setup,
             "election_s": t_elect,
             "waves_s": t_waves,
             "cmds": WAVES * g_n,
@@ -1301,6 +1345,204 @@ def bench_launches(kb: dict, kind: str) -> int:
     return sum(b["kernel_launches"][key] for b in kb["benches"].values())
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the multi-device path and the graft entry
+
+MESH_SLICES = 4  # slices of a coordinator's group axis, all on cuda:0
+MESH_STEPS = 6  # chained sharded steps held against the unsharded kernel
+
+
+def step_fields(C, state, egress) -> dict:
+    """A step result on the host: every state field and egress row (a
+    packed (17, G) array or an ``Egress``), by name."""
+    out = {f"state.{k}": v for k, v in C.state_to_numpy(state).items()}
+    if isinstance(egress, C.Egress):
+        out.update({f"egress.{k}": v.cpu().numpy()
+                    for k, v in egress._asdict().items()})
+    else:
+        out["egress"] = egress
+    return out
+
+
+def fields_max_err(a: dict, b: dict) -> int:
+    if a.keys() != b.keys():
+        raise AssertionError(f"fields differ: {sorted(a.keys() ^ b.keys())}")
+    return int(max(np.abs(a[k].astype(np.int64) - b[k].astype(np.int64)).max()
+                   if a[k].size else 0 for k in a))
+
+
+def seam_round_trip_ms(torch, C, dev, whole, sharded, packed,
+                       n: int = TIMED_CALLS) -> dict:
+    """Median host milliseconds of one full-width step through each
+    device seam, from the host mailbox to the egress on the host (upload
+    or split and upload, the step, the egress fetch, its realisation),
+    unsharded and over the mesh's slices, and of ``split_mailbox``
+    alone; the same state and mailbox every call."""
+    from ra_tpu_torch.runtime.device import DeviceSeam, ShardedSeam
+
+    one = DeviceSeam(dev)
+    buf = one.mbox_buffer(*packed.shape)
+    buf[:] = packed
+    mesh = ShardedSeam([dev] * len(sharded.shards))
+    g, p = whole.match_index.shape
+    mesh.init_state(g, p, whole.term_suffix.shape[1])  # sets the slice width
+
+    def trip(seam, state, mbox):
+        def run():
+            seam.realise(seam.start_fetch(seam.step_full(state, mbox)[1]))
+        return run
+
+    def host_median(fn):
+        for _ in range(20):
+            fn()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    stage = np.empty((len(sharded.shards),) + (packed.shape[0],
+                                               sharded.shard_groups), np.int32)
+    return {"one": host_median(trip(one, whole, buf)),
+            "sharded": host_median(trip(mesh, sharded, packed)),
+            "split": host_median(
+                lambda: C.split_mailbox(packed, len(sharded.shards), stage))}
+
+
+def phase_mesh(torch, C, S, dev, workdir: str) -> dict:
+    """(a) ``graft_entry.entry()`` on the card against the CPU, its
+    quorum scan through ``quorum.cu``; (b) the step over ``MESH_SLICES``
+    slices on the card against the unsharded step kernel, chained over
+    edge inputs with scatter rows at every slice edge and pads; (c)
+    ``graft_entry.dryrun_multichip(MESH_SLICES)`` on the card; (d) the
+    main path's shape through coordinators over a mesh of
+    ``MESH_SLICES`` slices. Launches of (a), (c) and (d) are the phase's
+    (their entry points drive the path); (b)'s are a comparison."""
+    import contextlib
+    import io
+
+    from ra_tpu_torch import graft_entry
+
+    cases = step_cases()
+    Q = C.quorum
+
+    def zero():
+        S.LAUNCHES_FULL = S.LAUNCHES_SUB = Q.LAUNCHES = 0
+
+    def counts():
+        return {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                "quorum": Q.LAUNCHES}
+
+    out = {"launches": {}, "device": str(dev)}
+    # (a) the graft entry: one step on the card, one on the CPU
+    zero()
+    fn, args = graft_entry.entry()
+    if args[0].role.device != dev:
+        raise AssertionError(f"entry() placed its state on {args[0].role.device}")
+    got = step_fields(C, *fn(*args))
+    torch.cuda.synchronize()
+    out["launches"]["entry"] = counts()
+    fn, args = graft_entry.entry("cpu")
+    want = step_fields(C, *fn(*args))
+    out["entry_max_abs_err"] = fields_max_err(got, want)
+    if out["entry_max_abs_err"]:
+        raise AssertionError(
+            f"entry() on the card != on the CPU (max err "
+            f"{out['entry_max_abs_err']})")
+    if out["launches"]["entry"] != {"full": 0, "sub": 0, "quorum": 1}:
+        raise AssertionError(
+            f"entry() launches {out['launches']['entry']}: want quorum.cu once")
+
+    # (b) the sharded step against the unsharded step kernel and the
+    # plain step (on the card and on the CPU), all from one state
+    g, n = GROUPS, MESH_SLICES
+    rng = np.random.default_rng(8)
+    fields = cases.state_fields(rng, g, PEERS, SUFFIX_K)
+    whole = C.state_from_numpy(fields, dev)
+    sharded = C.split_state(whole, [dev] * n)
+    zero()
+    err = 0
+    for i in range(MESH_STEPS):
+        host = C.state_to_numpy(whole)
+        packed = cases.shard_edges(
+            rng, host, cases.packed(rng, host, np.arange(g), g), n)
+        on_dev = torch.from_numpy(packed).to(dev)
+        plain_dev = C.consensus_step_packed_scat_plain(whole, on_dev)
+        plain_cpu = C.consensus_step_packed_scat_plain(
+            C.state_from_numpy(host, "cpu"), torch.from_numpy(packed))
+        whole, eg = C.consensus_step_packed_scat(whole, on_dev)
+        sharded, egs = C.consensus_step_packed_scat_sharded(
+            sharded, [torch.from_numpy(p).to(dev)
+                      for p in C.split_mailbox(packed, n)])
+        got = step_fields(C, sharded,
+                          C.join_egress([x.cpu().numpy() for x in egs]))
+        for name, ref in (("the unsharded step kernel", (whole, eg)),
+                          ("the plain step on the card", plain_dev),
+                          ("the plain step on the CPU", plain_cpu)):
+            e = fields_max_err(step_fields(C, ref[0], ref[1].cpu().numpy()),
+                               got)
+            if e:
+                raise AssertionError(
+                    f"sharded step != {name} at step {i} (max err {e})")
+            err = max(err, e)
+    # the plain step on the card scans its quorum through quorum.cu
+    if counts() != {"full": MESH_STEPS * (n + 1), "sub": 0,
+                    "quorum": MESH_STEPS}:
+        raise AssertionError(f"sharded step launches {counts()}: want one "
+                             f"step-kernel launch a slice a step")
+    out["sharded_max_abs_err"] = err
+    out["seam_ms"] = seam_round_trip_ms(torch, C, dev, whole, sharded, packed)
+
+    # (c) the graft entry's dryrun over MESH_SLICES slices on the card
+    zero()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        graft_entry.dryrun_multichip(n)
+    lines = buf.getvalue().splitlines()
+    phases = [line for line in lines if line.startswith("phase ")]
+    if len(phases) != 4 or not lines[-1].startswith(
+            f"dryrun_multichip ok: {n} slices on 1 distinct device(s) "
+            f"({dev.type})"):
+        raise AssertionError(f"dryrun_multichip: {lines}")
+    out["dryrun"] = lines
+    out["launches"]["dryrun"] = counts()
+    c = out["launches"]["dryrun"]
+    if c["full"] <= 0 or c["full"] % n or c["sub"] or c["quorum"]:
+        raise AssertionError(f"dryrun launches {c}: want {n} step-kernel "
+                             f"launches a step and nothing else")
+
+    # (d) the main path's shape through a mesh (phase_main zeroes the
+    # counts just before it drives the path and reads them just after)
+    r = phase_main(torch, C, S, dev, workdir, "mesh_", mesh=[dev] * n)
+    out["main"] = r
+    out["launches"]["main"] = r["launches"]
+    out["launches"]["phase"] = {
+        k: sum(out["launches"][part][k] for part in ("entry", "dryrun", "main"))
+        for k in ("full", "sub", "quorum")}
+    return out
+
+
+def mesh_line(kx: dict, card: str) -> str:
+    r = kx["main"]
+    return (
+        f"(a) entry() on {kx['device']} == on the CPU in every state field and "
+        f"egress field (max_abs_err {kx['entry_max_abs_err']}), launches "
+        f"{kx['launches']['entry']}; (b) {MESH_SLICES} slices == the "
+        f"unsharded step kernel and the plain step (card and CPU) over "
+        f"{MESH_STEPS} chained steps at "
+        f"G={GROUPS} with scatter rows at every slice edge (max_abs_err "
+        f"{kx['sharded_max_abs_err']}); a step through the device seam, "
+        f"host mailbox to host egress (median of {TIMED_CALLS}, host "
+        f"clock): unsharded {kx['seam_ms']['one']:.6f} ms, {MESH_SLICES} "
+        f"slices {kx['seam_ms']['sharded']:.6f} ms, of which the mailbox "
+        f"split {kx['seam_ms']['split']:.6f} ms; (c) dryrun_multichip({MESH_SLICES}): "
+        f"{kx['dryrun'][-1]}, launches {kx['launches']['dryrun']}; (d) main "
+        f"path over {MESH_SLICES} slices on {kx['device']}: set-up "
+        f"{r['setup_s']:.3f} "
+        f"s; {main_line(r, card)}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
@@ -1434,6 +1676,16 @@ def main(argv=None) -> int:
         f"in every state field and success sum (max_abs_err "
         f"{kb['decisions_check']['max_abs_err']}) | "
         f"{time.perf_counter() - t:.2f} s")
+
+    # phase 8: the multi-device path (a coordinator's groups in slices,
+    # all on this card) and the graft entry
+    t = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ra_smoke_mesh_")
+    try:
+        kx = phase_mesh(torch, C, S, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase mesh: {mesh_line(kx, card)} | {time.perf_counter() - t:.2f} s")
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",
@@ -1442,7 +1694,8 @@ def main(argv=None) -> int:
     def by_phase(kind):
         return {"main": km["launches"][kind], "api": ka["launches"][kind],
                 "harness": kh["launches"][kind],
-                "bench": bench_launches(kb, kind)}
+                "bench": bench_launches(kb, kind),
+                "mesh": kx["launches"]["phase"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",

@@ -39,7 +39,10 @@ Port notes:
 - in the plain step the quorum scan's default backend is the
   hand-written CUDA kernel (``ops.quorum``) on CUDA tensors and its
   plain sort version on CPU tensors. ``configure(quorum_backend=
-  "sort")`` selects the plain sort formulation explicitly.
+  "sort")`` selects the plain sort formulation explicitly;
+- over a mesh of N devices the state is a ``ShardedState``: N equal
+  slices of the group axis, each stepped alone (``split_mailbox``,
+  ``consensus_step_packed_scat_sharded``, ``join_egress``).
 """
 
 from __future__ import annotations
@@ -264,8 +267,12 @@ def state_from_numpy(fields: Mapping[str, np.ndarray], device=None) -> GroupStat
     return GroupState(**out)
 
 
-def state_to_numpy(state: GroupState) -> dict:
-    """Host numpy copies of every field, keyed by name."""
+def state_to_numpy(state) -> dict:
+    """Host numpy copies of every field, keyed by name. A
+    ``ShardedState`` gives the whole group axis, in gid order."""
+    if isinstance(state, ShardedState):
+        parts = [state_to_numpy(s) for s in state.shards]
+        return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
 
 
@@ -803,6 +810,107 @@ def consensus_step_packed_sub_scat(
     if packed.device.type == "cpu":
         return consensus_step_packed_sub_scat_plain(state, packed, gidx)
     return step.launch_sub(state, packed, gidx)
+
+
+# ---------------------------------------------------------------------------
+# the group axis in shards (the multi-device path)
+#
+# A mesh of N devices holds the state as N equal slices of the group
+# axis: shard s holds gids [s*Gs, (s+1)*Gs), Gs = G/N, on its own device
+# (devices may repeat). Every group's decisions are independent, so each
+# shard steps alone, with no communication; a gid enters a shard rebased
+# to gid - s*Gs. The JAX package shards the same axis over a
+# ``jax.sharding.Mesh`` and lets GSPMD route.
+
+
+class ShardedState:
+    """A ``GroupState`` cut along the group axis into equal shards, in
+    gid order. Immutable, as a ``GroupState`` is."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards):
+        self.shards = tuple(shards)
+
+    @property
+    def shard_groups(self) -> int:
+        return self.shards[0].role.shape[0]
+
+
+def split_state(state: GroupState, devices) -> ShardedState:
+    """``state`` cut into ``len(devices)`` equal shards, shard s copied
+    to ``devices[s]``."""
+    n = len(devices)
+    g = state.role.shape[0]
+    if g % n:
+        raise ValueError(f"capacity {g} not divisible by mesh size {n}")
+    gs = g // n
+    return ShardedState(
+        GroupState(*(f[s * gs:(s + 1) * gs].to(resolve_device(d), copy=True)
+                     for f in state))
+        for s, d in enumerate(devices)
+    )
+
+
+def route_gids(gids, g: int, n: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Each host gid's shard of N and its id there, by JAX's index rule:
+    a negative id wraps once; an id still out of range (a pad: ``G``
+    among them) gets shard -1, and drops."""
+    gi = np.asarray(gids, np.int64).reshape(-1)
+    gi = np.where(gi < 0, gi + g, gi)
+    gs = g // n
+    shard = np.where((gi >= 0) & (gi < g), gi // gs, -1)
+    return shard, gi - shard * gs
+
+
+def split_mailbox(packed: np.ndarray, n: int,
+                  out: Optional[np.ndarray] = None) -> np.ndarray:
+    """A full-width host mailbox ((24, G) int32) as N shard mailboxes
+    ((N, 24, G/N) int32, written into ``out`` when given). The message
+    rows split by column range. The scatter rows split by gid: each
+    entry goes to shard gid // Gs with its gid rebased, in its order,
+    and the rest of the shard's row is pads (gid Gs). A shard's entries
+    fit its Gs columns when each row names a group at most once, as the
+    coordinator's do; more entries than columns raise ValueError."""
+    rows, g = packed.shape
+    gs = g // n
+    base = len(MBOX_FIELDS)
+    if out is None:
+        out = np.empty((n, rows, gs), np.int32)
+    out[:, :base] = packed[:base].reshape(base, n, gs).transpose(1, 0, 2)
+    out[:, base:] = 0
+    for kind, gid_row, val_rows in (
+            ("appended runs", base, (base + 1, base + 2, base + 3)),
+            ("watermarks", base + 4, (base + 5,))):
+        shard, local = route_gids(packed[gid_row], g, n)
+        out[:, gid_row] = gs
+        for s in range(n):
+            sel = np.flatnonzero(shard == s)
+            m = len(sel)
+            if m > gs:
+                raise ValueError(f"{kind}: {m} entries for shard {s}, "
+                                 f"which has {gs} columns")
+            out[s, gid_row, :m] = local[sel]
+            for r in val_rows:
+                out[s, r, :m] = packed[r, sel]
+    return out
+
+
+def join_egress(parts) -> np.ndarray:
+    """The shards' egresses ((17, Gs) host arrays, in shard order) as one
+    (17, G) egress in gid order."""
+    return np.concatenate(parts, axis=1)
+
+
+def consensus_step_packed_scat_sharded(state: ShardedState, mboxes):
+    """The full-width main-path step, shard by shard: shard s steps with
+    ``mboxes[s]`` (its (24, Gs) int32 mailbox from ``split_mailbox``, on
+    its device) through ``consensus_step_packed_scat``, which on CUDA is
+    one step-kernel launch a shard. Returns (the new ``ShardedState``,
+    the shards' egresses in shard order)."""
+    outs = [consensus_step_packed_scat(st, mb)
+            for st, mb in zip(state.shards, mboxes)]
+    return ShardedState(o[0] for o in outs), [o[1] for o in outs]
 
 
 # ---------------------------------------------------------------------------

@@ -76,10 +76,11 @@ _fns: Dict[str, object] = {}
 # 23 field pointers, (G, P, K, device), returned?): a field of a new call
 # that is the same tensor object as the field of such a state is known
 # to be well formed. Replaced whole (never mutated), so readers need no
-# lock. Six cover the coordinators that share one card in a process; it
-# keeps up to six recent states alive.
+# lock. Sixteen cover the states that share one card in a process (three
+# coordinators, each over a mesh of four slices); it keeps up to sixteen
+# recent states alive.
 _records: Tuple[tuple, ...] = ()
-_KEEP = 6
+_KEEP = 16
 
 
 def _record_of(state) -> Optional[tuple]:

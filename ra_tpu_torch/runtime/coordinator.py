@@ -39,8 +39,11 @@ This is the PyTorch port of ``ra_tpu.runtime.coordinator``: the host
 logic is the reference's, line for line, and every tensor operation goes
 through one ``DeviceSeam`` (``runtime/device.py``) on the explicit
 ``device`` the coordinator is built with (``"cuda"`` by default, which
-raises when CUDA is absent; tests pass ``"cpu"``). One device, no mesh:
-sharding the group axis is later work.
+raises when CUDA is absent; tests pass ``"cpu"``). With ``mesh=`` (a
+sequence of N devices, repeats allowed) the group axis is cut into N
+equal slices, one per device (``ShardedSeam``), each stepped by the
+full-width step: on CUDA one step-kernel launch a slice. As in the
+reference, a sharded coordinator never takes the active set.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ from ra_tpu_torch.log.api import LogApi
 from ra_tpu_torch.log.memory import MemoryLog
 from ra_tpu_torch.machine import Machine, normalize_apply_result
 from ra_tpu_torch.ops import consensus as C
-from ra_tpu_torch.runtime.device import DeviceSeam
+from ra_tpu_torch.runtime.device import DeviceSeam, ShardedSeam
 from ra_tpu_torch.protocol import (
     AppendEntriesReply,
     AppendEntriesRpc,
@@ -399,14 +402,19 @@ class BatchCoordinator:
             raise ValueError(f"unknown active_set mode {active_set!r}")
         self.active_set = active_set
 
-        # one device per coordinator: sharding the group axis over a
-        # mesh (the reference's multi-chip path) is not ported yet
-        if mesh is not None:
-            raise NotImplementedError(
-                "ra_tpu_torch's BatchCoordinator runs on one device; "
-                "mesh sharding is not supported yet (pass mesh=None)"
-            )
-        self._dev = DeviceSeam(device)
+        # multi-device: cut the GROUP axis of all consensus state into
+        # equal slices over the mesh's devices (replica axis P rides
+        # along whole). Every group's decision math is independent, so
+        # each slice steps alone with no communication; the seam routes
+        # host scatters to their slice by group id. The reference shards
+        # over a jax.sharding.Mesh; here a mesh is a device sequence.
+        self._sharded = mesh is not None
+        if self._sharded:
+            if device is not None:
+                raise ValueError("pass device or mesh, not both")
+            self._dev = ShardedSeam(mesh)
+        else:
+            self._dev = DeviceSeam(device)
         self.device = self._dev.device
         # groups not yet registered must never act: inactive rows
         self.state = self._dev.init_state(capacity, num_peers, suffix_k)
@@ -980,30 +988,22 @@ class BatchCoordinator:
                 self._lease_sync(g)
         if rows:
             dev = self._dev
-            gids = dev.tensor([r[0] for r in rows])
-            act = dev.tensor(np.stack([r[1] for r in rows]), np.bool_)
-            slots = dev.tensor([r[2] for r in rows])
-            terms = dev.tensor([r[3] for r in rows])
-            voted = dev.tensor([r[4] for r in rows])
-            lis_np = np.array([r[5] for r in rows], np.int32)
-            lts_np = np.array([r[6] for r in rows], np.int32)
-            sidx_np = np.array([r[7] for r in rows], np.int32)
-            sterm_np = np.array([r[8] for r in rows], np.int32)
-            lis = dev.tensor(lis_np)
-            lts = dev.tensor(lts_np)
-            sidxs = dev.tensor(sidx_np)
-            sterms = dev.tensor(sterm_np)
+            gids = np.array([r[0] for r in rows], np.int32)
+            act = np.stack([r[1] for r in rows]).astype(np.bool_)
+            slots = np.array([r[2] for r in rows], np.int32)
+            terms = np.array([r[3] for r in rows], np.int32)
+            voted = np.array([r[4] for r in rows], np.int32)
+            lis = np.array([r[5] for r in rows], np.int32)
+            lts = np.array([r[6] for r in rows], np.int32)
+            sidxs = np.array([r[7] for r in rows], np.int32)
+            sterms = np.array([r[8] for r in rows], np.int32)
             # recovered tails: the device learns last/written/snapshot
             # rows, with the whole (snap, li] interval marked
             # term-unknown — prev-term lookups fall back to the host log
             # (needs_host) until traffic reconciles the ring. Everything
             # already on disk is durable, so written == last.
-            unk_lo = dev.tensor(
-                np.where(lis_np > sidx_np, sidx_np + 1, 1).astype(np.int32)
-            )
-            unk_hi = dev.tensor(
-                np.where(lis_np > sidx_np, lis_np, 0).astype(np.int32)
-            )
+            unk_lo = np.where(lis > sidxs, sidxs + 1, 1).astype(np.int32)
+            unk_hi = np.where(lis > sidxs, lis, 0).astype(np.int32)
             with self._state_lock:
                 self.state = dev.set_rows(
                     self.state, gids,
@@ -1744,7 +1744,7 @@ class BatchCoordinator:
                 [(gid, role, 0) for gid, role in self._pending_roles]
             )
             self._pending_roles = []
-            self.state = C.set_roles(self.state, gids, roles)
+            self.state = self._dev.set_roles(self.state, gids, roles)
 
         # consume the staged halves: detach so concurrent stagers (the
         # WAL writer thread, the egress thread's rare paths) start a
@@ -1764,7 +1764,9 @@ class BatchCoordinator:
                 # rare (mixed-term batches): scatter older runs first so
                 # the newest run's ring slots win
                 gids, idxs, terms = self._pad3(legacy)
-                self.state = C.record_appended(self.state, gids, idxs, terms)
+                self.state = self._dev.record_appended(
+                    self.state, gids, idxs, terms
+                )
         if written and self._lat_gids:
             now_w = time.monotonic_ns()
             for gid_w in self._lat_gids:
@@ -1785,8 +1787,10 @@ class BatchCoordinator:
         # The newest appended runs and the durable watermarks ride the
         # packed mailbox itself (C.MBOX_SCAT_FIELDS rows) and apply
         # inside the fused step — one transfer + one dispatch per step.
+        # A sharded coordinator never takes the active set (as in the
+        # reference): every slice steps at full width.
         act: Optional[list] = None
-        if self.active_set != "never":
+        if not self._sharded and self.active_set != "never":
             cand = self._hot | appended.keys() | written.keys()
             if self.active_set == "always" or len(cand) <= (self.capacity >> 2):
                 act = sorted(cand)
@@ -1794,23 +1798,22 @@ class BatchCoordinator:
         stepped = False
         if act is not None:
             if act:
-                packed, gidx, act_np, consumed, mbox_buf = (
-                    self._build_mailbox_sub(act, app_rows, written)
+                gidx, act_np, consumed, mbox_buf = self._build_mailbox_sub(
+                    act, app_rows, written
                 )
-                self.state, eg_packed = C.consensus_step_packed_sub_scat(
-                    self.state, packed, gidx
+                self.state, eg_packed = self._dev.step_sub(
+                    self.state, mbox_buf, gidx
                 )
                 stepped = True
                 self.steps += 1
                 self.sub_steps += 1
                 self.msgs_processed += len(consumed)
         else:
-            packed, consumed, mbox_buf = self._build_mailbox(
-                app_rows, written
-            )
-            self.state, eg_packed = C.consensus_step_packed_scat(
-                self.state, packed
-            )
+            # the newest appended runs and the watermarks ride the
+            # mailbox's scatter rows on every path: a sharded seam splits
+            # them by group id, so each slice's step applies its own
+            consumed, mbox_buf = self._build_mailbox(app_rows, written)
+            self.state, eg_packed = self._dev.step_full(self.state, mbox_buf)
             stepped = True
             self.steps += 1
             self.msgs_processed += len(consumed)
@@ -1942,7 +1945,7 @@ class BatchCoordinator:
         """Pad scatter batches to power-of-two buckets (the reference's
         bound on compiled shapes; kept so both packages scatter the same
         rows). Pads use an out-of-bounds group id, which the scatters
-        drop. Returns one device column per input column."""
+        drop. Returns one host column per input column."""
         n = len(rows)
         cap = 1
         while cap < n:
@@ -1951,7 +1954,7 @@ class BatchCoordinator:
         arr[n:, 0] = self.capacity
         if n:
             arr[:n] = rows
-        return tuple(self._dev.tensor(arr[:, c]) for c in range(width))
+        return tuple(arr[:, c] for c in range(width))
 
     def _pad3(self, triples):
         return self._pad(triples, 3)
@@ -2590,7 +2593,7 @@ class BatchCoordinator:
             if g.inbox:
                 self._hot.add(i)  # more queued: stay hot for next step
         self._pack_hot(packed, aer_i, aer_m, aer_s, rep_i, rep_m, rep_s)
-        return self._dev.upload(packed), consumed, packed
+        return consumed, packed
 
     def _build_mailbox_sub(self, act, app_rows=None, written=None):
         """Compact mailbox for the active-set step: one COLUMN PER
@@ -2647,13 +2650,7 @@ class BatchCoordinator:
             if g.inbox:
                 self._hot.add(i)  # more queued: stay hot for next step
         self._pack_hot(packed, aer_i, aer_m, aer_s, rep_i, rep_m, rep_s)
-        return (
-            self._dev.upload(packed),
-            self._dev.upload(gidx),
-            np.asarray(act, np.int64),
-            consumed,
-            packed,
-        )
+        return gidx, np.asarray(act, np.int64), consumed, packed
 
     def _encode(self, g: GroupHost, from_sid, msg, p, i) -> None:
         R = self._R
@@ -3282,11 +3279,8 @@ class BatchCoordinator:
         snap = g.log.snapshot_index_term()
         if snap is not None and snap[0] > g.snap_floor:
             g.snap_floor = snap[0]
-            gid = self._dev.tensor([g.gid])
-            self.state = C.record_snapshot(
-                self.state, gid,
-                self._dev.tensor([snap[0]]),
-                self._dev.tensor([snap[1]]),
+            self.state = self._dev.record_snapshot(
+                self.state, [g.gid], [snap[0]], [snap[1]]
             )
 
     def _machine_timer(self, g: GroupHost, eff: fx.Timer) -> None:
@@ -3796,9 +3790,7 @@ class BatchCoordinator:
                 uid = f"{g.cluster_name}_{g.name}"
                 self.meta.store(uid, "current_term", g.term)
                 self.meta.store_sync(uid, "voted_for", (g.name, self.name))
-            self.state = C.force_elections(
-                self.state, self._dev.tensor([g.gid])
-            )
+            self.state = self._dev.force_elections(self.state, [g.gid])
             self._hot.add(g.gid)  # keep stepping (single-member self-election)
             outbound2: Dict[str, List] = (
                 {} if rare_out is None else rare_out
@@ -3838,9 +3830,7 @@ class BatchCoordinator:
             # a pipelined-to-but-unacked peer must not pass (mirrors
             # the scalar backend's match_index gate). One device read;
             # transfers are rare.
-            confirmed = int(
-                self._dev.read([self.state.match_index[g.gid, slot]])[0]
-            )
+            confirmed = self._dev.read_match(self.state, g.gid, slot)
             if confirmed != li:
                 self._reply(fut, ("error", "not_up_to_date"))
                 return
@@ -3951,10 +3941,8 @@ class BatchCoordinator:
             self.state = self._dev.set_rows(
                 self.state, g.gid, voting=onehot, active=onehot, self_slot=0,
             )
-            self.state = C.set_roles(
-                self.state,
-                self._dev.tensor([g.gid]),
-                self._dev.tensor([C.R_PRE_VOTE]),
+            self.state = self._dev.set_roles(
+                self.state, [g.gid], [C.R_PRE_VOTE]
             )
             g.role = C.R_PRE_VOTE
             g.pre_vote_token += 1
@@ -4338,10 +4326,8 @@ class BatchCoordinator:
             detail=f"installed at index {meta.index} (term {meta.term})",
         )
         dev = self._dev
-        gid = dev.tensor([g.gid])
-        self.state = C.record_snapshot(
-            self.state, gid, dev.tensor([meta.index]),
-            dev.tensor([meta.term]),
+        self.state = dev.record_snapshot(
+            self.state, [g.gid], [meta.index], [meta.term]
         )
         self.state = dev.max_rows(self.state, g.gid, current_term=msg.term)
         self.state = dev.set_rows(
@@ -4618,20 +4604,20 @@ class BatchCoordinator:
         if n == 0:
             return
         with self._state_lock:
-            st = self.state
             # state tensors are never updated in place (every step and
-            # scatter returns fresh tensors), so references taken under
-            # the lock stay valid and unchanging — holding the lock
+            # scatter returns fresh tensors), so a reference taken under
+            # the lock stays valid and unchanging — holding the lock
             # across the host transfer would stall the step thread
             # behind the async dispatch queue ...
-            snap = (
-                st.current_term, st.commit_index, st.last_index, st.role,
-                st.leader_slot, st.self_slot, st.match_index, st.active,
-            )
+            st = self.state
         # ... so pay the transfer/queue wait OUTSIDE it: one fetch per
-        # scan (the health_fetches == health_scans counter invariant)
-        # with the step loop free to run
-        dev = self._dev.read(snap)
+        # scan from the host's side, over every slice of a sharded state
+        # (the health_fetches == health_scans counter invariant), with
+        # the step loop free to run
+        dev = self._dev.read_fields(st, (
+            "current_term", "commit_index", "last_index", "role",
+            "leader_slot", "self_slot", "match_index", "active",
+        ))
         sc = self._health
         sc.counters.incr("health_fetches")
         term, commit, last, role, leader_slot, self_slot, match, active = (

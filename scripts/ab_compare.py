@@ -2,9 +2,11 @@
 """Compare two checkouts of the repository on one card, in turns.
 
     python3 scripts/ab_compare.py DIR_A DIR_B [--rounds 1]
+                                  [--pieces step,decisions,profile_wave]
 
 Each round runs A, B, B, A (so neither side always goes first), each
-piece in a fresh process from the checkout's root:
+piece in a fresh process from the checkout's root. The pieces (the
+first three by default):
 
 - ``chip_smoke.phase_step``: the step kernels against the plain step,
   then the time per call of both step entry points at G = 10240, P = 3,
@@ -13,7 +15,16 @@ piece in a fresh process from the checkout's root:
 - ``python -m ra_tpu_torch.bench --decisions`` (10240 groups x 200
   steps): decisions/s and card time a step;
 - ``python -m ra_tpu_torch.profile_wave 2048 4``: the wave-phase table's
-  ``device_step`` row.
+  ``device_step`` row;
+- ``main``: ``chip_smoke.phase_main`` through the step kernels, 10240
+  groups x 3 replicas, WAL-backed: durable cmds/s, the fleet election,
+  the steps of the measured waves, each wave step call's card span and
+  host wall and the wave-phase sums;
+- ``headline``: ``python -m ra_tpu_torch.bench --cmds 4`` (as
+  ``chip_smoke.py``'s phase bench): cmds/s, unloaded p50/p99, admitted
+  cmds/s;
+- ``reads``: ``python -m ra_tpu_torch.bench --reads --groups 256 --cmds
+  60``: reads/s lease on and off.
 
 It prints one JSON line per piece and run, tagged with the side and the
 card's name and power limit, and exits non-zero if any piece failed.
@@ -41,6 +52,21 @@ print(json.dumps({kind: {k: v for k, v in ks[kind].items() if k in keep}
                   for kind in ("full", "sub")}))
 """
 
+MAIN = r"""
+import json, sys, tempfile, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from ra_tpu_torch.ops import consensus as C
+from ra_tpu_torch.ops import kernels
+from ra_tpu_torch.ops import step as S
+kernels.build_many(["quorum", "step"])
+r = cs.phase_main(torch, C, S, torch.device("cuda", 0),
+                  tempfile.mkdtemp(prefix="ra_ab_"), "ab")
+print(json.dumps({k: r[k] for k in (
+    "durable_cmds_per_s", "election_s", "wave_steps", "wave_sub_steps",
+    "wave_split_ms", "step_ms")}))
+"""
+
 
 def run(where: str, args: list, timeout: float) -> str:
     proc = subprocess.run([sys.executable, *args], cwd=where,
@@ -51,19 +77,43 @@ def run(where: str, args: list, timeout: float) -> str:
     return proc.stdout
 
 
-def pieces(where: str) -> dict:
+def last_json(where: str, args: list, timeout: float) -> dict:
+    return json.loads(run(where, args, timeout).strip().splitlines()[-1])
+
+
+def bench(where: str, args: list, keys: tuple) -> dict:
+    res = last_json(where, ["-m", "ra_tpu_torch.bench", *args,
+                            "--device", "cuda:0"], 600)
+    return {k: res.get(k) for k in keys}
+
+
+PIECES = ("step", "decisions", "profile_wave", "main", "headline", "reads")
+
+
+def pieces(where: str, which) -> dict:
     out = {}
-    out["phase_step"] = json.loads(
-        run(where, ["-c", PHASE_STEP], 900).strip().splitlines()[-1])
-    dec = json.loads(run(where, ["-m", "ra_tpu_torch.bench", "--decisions",
-                                 "--device", "cuda:0"], 600)
-                     .strip().splitlines()[-1])
-    out["decisions"] = {k: dec.get(k) for k in (
-        "value", "card_us_per_step", "loop_card_us_per_step", "kernel_launches")}
-    table = run(where, ["-m", "ra_tpu_torch.profile_wave", "2048", "4",
-                        "--device", "cuda:0"], 600)
-    out["profile_wave"] = [ln for ln in table.splitlines()
-                           if ln.startswith("| ") and "device_step" in ln]
+    if "step" in which:
+        out["phase_step"] = last_json(where, ["-c", PHASE_STEP], 900)
+    if "decisions" in which:
+        out["decisions"] = bench(where, ["--decisions"], (
+            "value", "card_us_per_step", "loop_card_us_per_step",
+            "kernel_launches"))
+    if "profile_wave" in which:
+        table = run(where, ["-m", "ra_tpu_torch.profile_wave", "2048", "4",
+                            "--device", "cuda:0"], 600)
+        out["profile_wave"] = [ln for ln in table.splitlines()
+                               if ln.startswith("| ") and "device_step" in ln]
+    if "main" in which:
+        out["main"] = last_json(where, ["-c", MAIN], 900)
+    if "headline" in which:
+        out["headline"] = bench(where, ["--cmds", "4"], (
+            "value", "p50_ms", "p99_ms", "admitted_cmds_per_sec"))
+    if "reads" in which:
+        res = last_json(where, ["-m", "ra_tpu_torch.bench", "--reads",
+                                "--groups", "256", "--cmds", "60",
+                                "--device", "cuda:0"], 600)
+        out["reads"] = {arm: {k: res[arm][k] for k in (
+            "reads_per_sec", "read_p50_ms")} for arm in ("lease_on", "lease_off")}
     return out
 
 
@@ -72,7 +122,12 @@ def main() -> int:
     ap.add_argument("a")
     ap.add_argument("b")
     ap.add_argument("--rounds", type=int, default=1)
+    ap.add_argument("--pieces", default="step,decisions,profile_wave",
+                    help=f"comma-separated, of {','.join(PIECES)}")
     args = ap.parse_args()
+    which = args.pieces.split(",")
+    if set(which) - set(PIECES):
+        ap.error(f"unknown pieces {sorted(set(which) - set(PIECES))}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -81,7 +136,7 @@ def main() -> int:
         for side in ("a", "b", "b", "a"):
             where = os.path.abspath(getattr(args, side))
             try:
-                res = pieces(where)
+                res = pieces(where, which)
             except (RuntimeError, subprocess.TimeoutExpired) as e:
                 failed = True
                 res = {"error": str(e)[-3000:]}

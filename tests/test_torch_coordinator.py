@@ -207,9 +207,13 @@ def test_coordinator_defines_every_method_of_the_reference():
 
 
 def test_coordinator_device_rules():
-    with pytest.raises(NotImplementedError):
+    # a mesh replaces the device: naming both is refused
+    with pytest.raises(ValueError, match="device or mesh"):
         TC.BatchCoordinator("tmesh", capacity=8, num_peers=3, device="cpu",
-                            mesh=object())
+                            mesh=["cpu"] * 2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             TC.BatchCoordinator("tnocuda", capacity=8, num_peers=3)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            TC.BatchCoordinator("tnocudamesh", capacity=8, num_peers=3,
+                                mesh=["cuda"] * 2)

@@ -2,7 +2,8 @@
 the step kernels (full width and active set) against the plain torch-op
 step on the card and on the CPU over the edge inputs of
 ``torch_step_cases``, a small 3-coordinator cluster committing
-through the step kernels, three started coordinators serving the
+through the step kernels (unsharded, and over a mesh of four slices on
+one card, whose sharded step is also held against the unsharded one), three started coordinators serving the
 client API (``ra_tpu_torch.api``) through them, and the fault-injection
 harness and the linearizability workload with their coordinators on the
 card, and the decision bench's loop on the kernel against the plain
@@ -327,6 +328,106 @@ def test_three_coordinators_commit_through_the_kernel(dev):
             assert [c.by_name[f"g{g}"].machine_state for g in range(g_n)] == list(range(g_n))
             assert c.state.commit_index.device.type == "cuda"
         assert S.LAUNCHES_FULL + S.LAUNCHES_SUB > launches
+    finally:
+        for c in coords:
+            c.stop()
+
+
+def test_sharded_step_over_four_slices_matches_the_unsharded_kernel(dev):
+    """The state cut into four slices on the card, stepped slice by slice
+    (one step-kernel launch a slice), equals the unsharded step kernel
+    and the plain step (on the card and on the CPU) over six chained
+    steps with scatter rows at every slice edge and pads. The slices share one scratch (same card, stream and G/4), whose
+    epochs start two below 2**32: the wrap falls inside the first
+    sharded step."""
+    g, n = 4096, 4
+    here = torch.device("cuda", torch.cuda.current_device())
+    scratch = S.scratch_for(here, torch.cuda.current_stream(here).cuda_stream,
+                            g // n)
+    scratch.epoch = 0xFFFFFFFF - 2
+    rng = np.random.default_rng(41)
+    whole = C.state_from_numpy(cases.state_fields(rng, g, 3, 32), here)
+    sharded = C.split_state(whole, [here] * n)
+    n0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+    for i in range(6):
+        host = C.state_to_numpy(whole)
+        packed = cases.shard_edges(
+            rng, host, cases.packed(rng, host, np.arange(g), g), n)
+        on_dev = torch.from_numpy(packed).to(here)
+        plain_dev = C.consensus_step_packed_scat_plain(whole, on_dev)
+        plain_cpu = C.consensus_step_packed_scat_plain(
+            C.state_from_numpy(host, "cpu"), torch.from_numpy(packed))
+        whole, eg = C.consensus_step_packed_scat(whole, on_dev)
+        sharded, egs = C.consensus_step_packed_scat_sharded(
+            sharded, [torch.from_numpy(p).to(here)
+                      for p in C.split_mailbox(packed, n)])
+        b = C.state_to_numpy(sharded)
+        b_eg = C.join_egress([e.cpu().numpy() for e in egs])
+        for name, (st, e) in (("kernel", (whole, eg)), ("plain card", plain_dev),
+                              ("plain cpu", plain_cpu)):
+            a = C.state_to_numpy(st)
+            for k in a:
+                np.testing.assert_array_equal(
+                    a[k], b[k], err_msg=f"{k} step {i} vs {name}")
+            np.testing.assert_array_equal(
+                e.cpu().numpy(), b_eg, err_msg=f"egress step {i} vs {name}")
+    assert (S.LAUNCHES_FULL - n0[0], S.LAUNCHES_SUB - n0[1]) == (6 * (n + 1), 0)
+    assert scratch.epoch == 6 * n - 2
+
+
+def test_four_slice_coordinators_commit_a_wave(dev):
+    """Three coordinators, each over a mesh of four slices on cuda:0,
+    elect and commit a wave of commands on every replica: each step
+    launches the step kernel once a slice, and never the active set."""
+    from ra_tpu_torch.machine import SimpleMachine
+    from ra_tpu_torch.protocol import USR, Command, ElectionTimeout
+    from ra_tpu_torch.runtime.coordinator import BatchCoordinator
+
+    g_n, n = 64, 4
+    here = torch.device("cuda", torch.cuda.current_device())
+    coords = [BatchCoordinator(f"cm{i}", capacity=g_n, num_peers=3,
+                               idle_sleep_s=0, mesh=[here] * n)
+              for i in range(3)]
+    try:
+        for c in coords:
+            c.add_groups([
+                (f"g{g}", f"cmcl{g}", [(f"g{g}", f"cm{i}") for i in range(3)],
+                 SimpleMachine(lambda cmd, s: s + cmd, 0), None)
+                for g in range(g_n)
+            ])
+
+        def step():
+            worked = False
+            for c in coords:
+                worked = c.step_stage() or worked
+            for c in coords:
+                worked = c.step_finish() or worked
+            return worked
+
+        n0 = (S.LAUNCHES_FULL, S.LAUNCHES_SUB, sum(c.steps for c in coords))
+        coords[0].deliver_many(
+            [((f"g{g}", "cm0"), ElectionTimeout(), None) for g in range(g_n)])
+        for _ in range(200):
+            step()
+            if all(coords[0].by_name[f"g{g}"].role == C.R_LEADER
+                   for g in range(g_n)):
+                break
+        for g in range(g_n):
+            coords[0].deliver((f"g{g}", "cm0"),
+                              Command(kind=USR, data=g, reply_mode="noreply"), None)
+        for _ in range(200):
+            if not step() and all(
+                c.by_name[f"g{g}"].machine_state == g
+                for c in coords for g in range(g_n)
+            ):
+                break
+        for c in coords:
+            assert [c.by_name[f"g{g}"].machine_state for g in range(g_n)] == list(range(g_n))
+            assert [st.commit_index.device for st in c.state.shards] == [here] * n
+            assert c.sub_steps == 0
+        steps = sum(c.steps for c in coords) - n0[2]
+        assert steps > 0
+        assert (S.LAUNCHES_FULL - n0[0], S.LAUNCHES_SUB - n0[1]) == (n * steps, 0)
     finally:
         for c in coords:
             c.stop()

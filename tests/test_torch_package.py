@@ -517,6 +517,7 @@ def test_import_loads_neither_jax_nor_the_reference_package():
         "import ra_tpu_torch.dbg\n"
         "import ra_tpu_torch.bench, ra_tpu_torch.profile_wave\n"
         "import ra_tpu_torch.obs_smoke, ra_tpu_torch.ra_top\n"
+        "import ra_tpu_torch.graft_entry\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'ra_tpu' or m.startswith('ra_tpu.'))\n"
         "print(','.join(bad))\n"

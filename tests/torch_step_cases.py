@@ -8,7 +8,8 @@ and ``sender_slot`` at P and above (and a sender at -1), negative and out-of-ran
 duplicate ``w_gid`` ids, empty appended runs (lo > hi), scatter rows for
 groups outside the active set, an active set holding G-1 beside pad ids,
 host term overrides, and (``near_max``) indexes and terms within a few of
-``2**31 - 1``, where int32 sums wrap.
+``2**31 - 1``, where int32 sums wrap. ``shard_edges`` puts the scatter
+rows at the edges of a mesh's shards.
 """
 
 import numpy as np
@@ -162,6 +163,48 @@ def packed(rng, st: dict, cols: np.ndarray, width: int) -> np.ndarray:
     out[R["w_gid"], nw:nw + npad] = [g, -g - 5, g + 9][:npad]
     out[R["w_idx"], nw:nw + npad] = I32_MAX
     return out.astype(np.int32)
+
+
+def shard_edges(rng, st: dict, out: np.ndarray, n: int) -> np.ndarray:
+    """``out``, a full-width packed mailbox (from ``packed``), with its
+    scatter rows rewritten for a mesh of ``n`` equal shards: appended
+    runs at the first and the last group of every shard beside others
+    (a fifth written as negative aliases), then pad ids at G, G + 1 and
+    below -G; watermarks at every shard edge and some others (a tenth
+    as negative aliases), then pads. Each row names a group at most
+    once, as the coordinator's mailboxes do."""
+    g = out.shape[1]
+    k = st["term_suffix"].shape[1]
+    gs = g // n
+    edges = np.unique(np.concatenate([np.arange(n) * gs,
+                                      np.arange(n) * gs + gs - 1]))
+    rest = np.setdiff1d(np.arange(g), edges)
+    ag = np.concatenate([edges, rng.choice(rest, size=len(rest) // 4,
+                                           replace=False)])
+    rng.shuffle(ag)
+    na = len(ag)
+    hi = np.minimum(st["last_index"][ag] + rng.integers(0, 3, na), I32_MAX)
+    out[R["a_gid"]] = g
+    out[R["a_gid"], :na] = np.where(rng.random(na) < 0.2, ag - g, ag)
+    out[R["a_lo"], :na] = np.maximum(hi - rng.integers(-2, 2 * k, na), 1)
+    out[R["a_hi"], :na] = hi
+    out[R["a_term"], :na] = st["current_term"][ag]
+    pads = [g, g + 1, -g - 1][:g - na]
+    out[R["a_gid"], na:na + len(pads)] = pads
+    out[R["a_lo"], na:na + len(pads)] = 1
+    out[R["a_hi"], na:na + len(pads)] = 5
+    out[R["a_term"], na:na + len(pads)] = 9
+    wg = np.concatenate([edges, rng.choice(rest, size=len(rest) // 8,
+                                           replace=False)])
+    rng.shuffle(wg)
+    nw = len(wg)
+    out[R["w_gid"]] = g
+    out[R["w_gid"], :nw] = np.where(rng.random(nw) < 0.1, wg - g, wg)
+    out[R["w_idx"], :nw] = np.clip(
+        st["last_index"][wg] + rng.integers(-3, 2, nw), 0, I32_MAX)
+    out[R["w_gid"], nw:] = -g - 5
+    out[R["w_idx"], nw:] = I32_MAX
+    return out
 
 
 def active_set(rng, g: int, n: int, cap: int) -> np.ndarray:
