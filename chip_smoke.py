@@ -77,6 +77,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -146,6 +147,25 @@ def nvidia_smi_line() -> str:
     return out[0].strip()
 
 
+def sass_local_memory(so: str) -> dict:
+    """Local-memory instructions (STL, LDL) of each kernel in the SASS of
+    the built library ``so`` (``cuobjdump -sass``, beside ``nvcc``), by
+    kernel (its mangled name)."""
+    from ra_tpu_torch.ops import kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in text.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            counts[name] = 0
+        elif name is not None and re.search(r"\b(STL|LDL)(\.|\s)", line):
+            counts[name] += 1
+    return counts
+
+
 def median_ms(fn, n: int = TIMED_CALLS, warmup: int = 20) -> float:
     """Median over ``n`` calls of ``fn()``, each timed with a pair of
     CUDA events on the current stream."""
@@ -170,6 +190,19 @@ def median_ms(fn, n: int = TIMED_CALLS, warmup: int = 20) -> float:
 # phase 2: the quorum kernel against its plain version
 
 
+# the shapes phase kernel holds bit for bit against the plain version at
+# every P = 1..8: G around one tile of the kernel (64 groups), a large
+# ragged G, the main path's G and G = 1
+KERNEL_GS = (1, 63, 64, 65, 1001, 10237, 10240)
+# input views at these element offsets into larger buffers (bases that are
+# 4-byte or byte aligned, not 16-byte)
+KERNEL_OFFSETS = ((1, 1, 1), (3, 5, 2))
+# the timed rows: the main path's G at Ra's 3-, 5- and 7-replica groups
+KERNEL_TIMED_PS = (3, 5, 7)
+# the scaling row (not a deployment): G*(5P+8) = 96.5 MB, above the 50 MB L2
+SCALING = (4194304, 3)
+
+
 def quorum_inputs(rng, g: int, p: int):
     """Random match vectors and voter masks, with the edge rows of the
     JAX package's kernel tests: all voters present, a single voter, and
@@ -184,59 +217,167 @@ def quorum_inputs(rng, g: int, p: int):
     return match, voting, nvoters
 
 
+def miscompile_rows(p: int):
+    """Rows whose largest entry sits last, each asking for an ascending
+    position below P - 1: the case nvcc 12.8 got wrong at -O3 for a
+    register select chain over the sorted row (it returned the last
+    entry). Every position 0..P-2, entries in slot order and reversed."""
+    rows, counts = [], []
+    for pos in range(p - 1):
+        for head in (np.arange(1, p), np.arange(p - 1, 0, -1)):
+            rows.append(list(10 * head) + [10 * p])
+            counts.append(2 * (p - 1 - pos))
+    match = np.asarray(rows, np.int32).reshape(-1, p)
+    return match, np.ones_like(match, bool), np.asarray(counts, np.int32)
+
+
+def at_offset(torch, a, off: int, dev):
+    """``a`` on ``dev`` as a view ``off`` elements into a larger buffer."""
+    t = torch.from_numpy(a).to(dev)
+    buf = torch.zeros(t.numel() + off, dtype=t.dtype, device=dev)
+    view = buf[off:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def quorum_bound(g: int, p: int) -> tuple:
+    """(bound ms, bound by, bytes, ops) of the scan over G groups of P:
+    each input read once, the output written once, against the integer
+    work of the rank pick."""
+    nbytes = g * p * 4 + g * p * 1 + g * 4 + g * 4  # G*(5P+8)
+    # per group: P masks, the clamp (4 ops), P*P pairs of two compares
+    # and two adds, P tests (3 ops) and selects, P - 1 maxima
+    nops = g * (p + 4 + 4 * p * p + 4 * p + p - 1)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / ALU_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            nbytes, nops)
+
+
+def host_part_quorum_ms(quorum, call, n: int = TIMED_CALLS,
+                        warmup: int = 20) -> float:
+    """The host part of an ``agreed_commit`` call: the median host-clock
+    time of ``call()`` with the C entry called at G = 0, where it returns
+    before launching (through a Python shim that then reports success)."""
+    name = "ra_quorum_launch"
+    real = quorum._kernel(name)
+
+    def no_launch(m, v, nv, out, g, p, stream):
+        return real(m, v, nv, out, 0, p, stream) and 0
+
+    quorum._fns[name] = no_launch
+    try:
+        for _ in range(warmup):
+            call()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            call()
+            times.append(time.perf_counter() - t0)
+    finally:
+        quorum._fns[name] = real
+    return statistics.median(times) * 1e3
+
+
+def quorum_row(torch, quorum, rng, g: int, p: int, dev,
+               yardsticks: bool = True) -> dict:
+    """Times of the scan over G groups of P: a call (median of event-
+    bracketed calls), its host part, its card time (profiler, 50 calls),
+    the bound and its share; with ``yardsticks``, the plain version and
+    the library call (``torch.sort`` + ``gather`` over the masked matrix,
+    the mask and positions prepared outside the timed call)."""
+    m, v, nv = quorum_inputs(rng, g, p)
+    tm, tv, tn = (torch.from_numpy(a).to(dev) for a in (m, v, nv))
+
+    def call():
+        return quorum.agreed_commit(tm, tv, tn)
+
+    if not torch.equal(call(), quorum.agreed_commit_plain(tm, tv, tn)):
+        raise AssertionError(f"quorum kernel != plain at G={g}, P={p}")
+    bound_ms, bound_by, nbytes, nops = quorum_bound(g, p)
+    _, dev_us = profile_kernels(torch, call, 50, ("quorum_kernel",))
+    card_us = sum(dev_us.values())
+    row = {"g": g, "p": p, "ms": median_ms(call),
+           "host_ms": host_part_quorum_ms(quorum, call), "card_us": card_us,
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+           "ops": nops, "bound_share": bound_ms * 1e3 / card_us}
+    if yardsticks:
+        row["plain_ms"] = median_ms(lambda: quorum.agreed_commit_plain(tm, tv, tn))
+        eff = torch.where(tv, tm, -1)
+        pos = torch.clamp(p - 1 - torch.div(tn, 2, rounding_mode="floor"),
+                          0, p - 1).long()[:, None]
+        row["library_ms"] = median_ms(
+            lambda: torch.sort(eff, dim=-1).values.gather(-1, pos))
+    return row
+
+
+def launch_floor(torch, quorum, g: int, dev) -> dict:
+    """The card's empty-launch floor beside the scan: an empty kernel at
+    the scan's grid for G, timed as a call is (events) and by the
+    profiler."""
+    fn = quorum._kernel("ra_quorum_empty_launch")
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+
+    def call():
+        if fn(g, stream) != 0:
+            raise RuntimeError("empty kernel launch failed")
+
+    _, dev_us = profile_kernels(torch, call, 50, ("empty_kernel",))
+    return {"g": g, "ms": median_ms(call), "card_us": sum(dev_us.values())}
+
+
 def phase_kernel(torch, quorum, dev) -> dict:
+    """The quorum kernel against its plain version, bit for bit, at every
+    P = 1..8 over ``KERNEL_GS`` (the miscompile rows appended at each G
+    of 1001 and more), and at ``KERNEL_OFFSETS`` views; then its rows at
+    the main path's G, the empty-launch floor and the scaling row."""
     rng = np.random.default_rng(1)
     max_err = 0
     shapes = 0
-    for g in (10240, 10237):
-        for p in (1, 3, 5, 7, 8):
+    for p in range(1, 9):
+        for g in KERNEL_GS:
             m, v, nv = quorum_inputs(rng, g, p)
-            tm = torch.from_numpy(m).to(dev)
-            tv = torch.from_numpy(v).to(dev)
-            tn = torch.from_numpy(nv).to(dev)
-            got = quorum.agreed_commit(tm, tv, tn)
-            ref = quorum.agreed_commit_plain(tm, tv, tn)
-            torch.cuda.synchronize()
-            err = int((got.long() - ref.long()).abs().max().item())
-            if not torch.equal(got, ref):
-                raise AssertionError(
-                    f"quorum kernel != plain at G={g}, P={p} (max err {err})"
-                )
-            max_err = max(max_err, err)
-            shapes += 1
-    # times at the main path's shape
-    m, v, nv = quorum_inputs(rng, GROUPS, PEERS)
-    tm = torch.from_numpy(m).to(dev)
-    tv = torch.from_numpy(v).to(dev)
-    tn = torch.from_numpy(nv).to(dev)
-    kernel_ms = median_ms(lambda: quorum.agreed_commit(tm, tv, tn))
-    plain_ms = median_ms(lambda: quorum.agreed_commit_plain(tm, tv, tn))
-    # library yardstick: torch.sort + gather over the masked matrix, with
-    # the mask and the picked positions prepared outside the timed call
-    eff = torch.where(tv, tm, -1)
-    pos = torch.clamp(PEERS - 1 - torch.div(tn, 2, rounding_mode="floor"),
-                      0, PEERS - 1).long()[:, None]
-    library_ms = median_ms(
-        lambda: torch.sort(eff, dim=-1).values.gather(-1, pos)
-    )
-    _, dev_us = profile_kernels(
-        torch, lambda: quorum.agreed_commit(tm, tv, tn), 50,
-        ("quorum_kernel",))
-    g, p = GROUPS, PEERS
-    nbytes = g * p * 4 + g * p * 1 + g * 4 + g * 4  # G*(5P+8)
-    # per group: P masks, P passes of ~P/2 compare-exchanges (2 ops
-    # each), the clamp and a P-way select
-    nops = g * (p + p * (p // 2) * 2 + 6 + p)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ALU_OPS_PER_S * 1e3
-    return {
-        "shapes": shapes, "max_abs_err": max_err, "ms": kernel_ms,
-        "plain_ms": plain_ms, "library_ms": library_ms,
-        "card_us": sum(dev_us.values()),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes,
-    }
+            if g >= 1001:
+                bad = miscompile_rows(p)
+                m, v, nv = (np.concatenate([x[:g - len(y)], y])
+                            for x, y in zip((m, v, nv), bad))
+            offsets = ((0, 0, 0),) + (KERNEL_OFFSETS if g in (1001, 10237) else ())
+            for off in offsets:
+                tm, tv, tn = (at_offset(torch, a, o, dev)
+                              for a, o in zip((m, v, nv), off))
+                launches = quorum.LAUNCHES
+                got = quorum.agreed_commit(tm, tv, tn)
+                ref = quorum.agreed_commit_plain(tm, tv, tn)
+                torch.cuda.synchronize()
+                if quorum.LAUNCHES != launches + 1:
+                    raise AssertionError("agreed_commit did not count one launch")
+                err = int((got.long() - ref.long()).abs().max().item())
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"quorum kernel != plain at G={g}, P={p}, offsets "
+                        f"{off} (max err {err})")
+                max_err = max(max_err, err)
+                shapes += 1
+    rows = {p: quorum_row(torch, quorum, rng, GROUPS, p, dev)
+            for p in KERNEL_TIMED_PS}
+    floor = launch_floor(torch, quorum, GROUPS, dev)
+    scaling = quorum_row(torch, quorum, rng, *SCALING, dev, yardsticks=False)
+    main = rows[PEERS]
+    return {"shapes": shapes, "max_abs_err": max_err, "rows": rows,
+            "floor": floor, "scaling": scaling,
+            **{k: main[k] for k in ("ms", "host_ms", "plain_ms", "library_ms",
+                                    "card_us", "bound_ms", "bound_by",
+                                    "bytes")}}
+
+
+def kernel_row_line(r: dict) -> str:
+    extra = (f", plain {r['plain_ms']:.6f} ms, sort+gather "
+             f"{r['library_ms']:.6f} ms" if "plain_ms" in r else "")
+    return (f"G={r['g']} P={r['p']}: kernel {r['ms']:.6f} ms a call, host "
+            f"part {r['host_ms']:.6f} ms (median host clock, C entry at "
+            f"G = 0), card time {r['card_us']:.3f} us (profiler, 50 calls), "
+            f"bound {r['bound_ms']:.9f} ms ({r['bound_by']}, {r['bytes']} B, "
+            f"{r['ops']} ops), share of bound {r['bound_share']:.4f}{extra}")
 
 
 # ---------------------------------------------------------------------------
@@ -1002,6 +1143,18 @@ def stale_read_scenario(active_set: str, dev) -> list:
                 raise AssertionError(f"stale-read scenario: timeout: {what}")
             time.sleep(0.02)
 
+    def host(n):
+        return coords[n].by_name["srg"]
+
+    def leads(n, followers):
+        # n leads in its own view and every one of `followers` has taken
+        # its lead: same term, leader slot n (the members are listed in
+        # one order on every node, so slot i is sr<i> everywhere)
+        h = host(n)
+        return h.role == C.R_LEADER and all(
+            host(f).term == h.term and host(f).leader_slot == h.self_slot
+            for f in followers)
+
     orig_query = BatchCoordinator._handle_consistent_query
     BatchCoordinator._handle_consistent_query = broken_consistent_query
     leaderboard.clear()
@@ -1019,8 +1172,7 @@ def stale_read_scenario(active_set: str, dev) -> list:
         for n in names:
             coords[n].add_group("srg", "src", ids, DictKv())
         coords["sr0"].deliver(ids[0], ElectionTimeout(), None)
-        await_(lambda: coords["sr0"].by_name["srg"].role == C.R_LEADER,
-               "sr0 leads")
+        await_(lambda: host("sr0").role == C.R_LEADER, "sr0 leads")
 
         def write(value, target):
             inv = rec.now()
@@ -1038,16 +1190,27 @@ def stale_read_scenario(active_set: str, dev) -> list:
             rec.record("k", Op(cid, "read", out[1], inv, rec.now()))
 
         write((0, 1), ids[0])
+        # the stale read needs sr0 to hold the lead with (0, 1) applied
+        # when it is cut off, and no election in flight: wait until
+        # sr1 and sr2 follow it in its term
+        await_(lambda: leads("sr0", ("sr1", "sr2"))
+               and host("sr0").machine_state.get("k") == (0, 1),
+               "sr0 leads, followed by sr1 and sr2, with (0, 1) applied")
         # the leader is cut off; either majority member may take over
         for o in ("sr1", "sr2"):
             coords["sr0"].transport.block("sr0", o)
             coords[o].transport.block(o, "sr0")
         coords["sr1"].deliver(ids[1], ElectionTimeout(), None)
-        await_(lambda: any(coords[n].by_name["srg"].role == C.R_LEADER
-                           for n in ("sr1", "sr2")), "majority side takes over")
-        write((0, 2), ids[1])
-        new_leader = next(n for n in ("sr1", "sr2")
-                          if coords[n].by_name["srg"].role == C.R_LEADER)
+        # wait until the other majority member follows the new leader:
+        # a member that still names sr0 would redirect a write to the
+        # cut-off node, where it cannot commit
+        majority = {"sr1": ("sr2",), "sr2": ("sr1",)}
+        await_(lambda: any(leads(n, f) for n, f in majority.items()),
+               "majority side takes over, followed by its other member")
+        new_leader = next(n for n, f in majority.items() if leads(n, f))
+        write((0, 2), ("srg", new_leader))
+        # sr0 cannot hear of the new term: it still leads in its own view
+        await_(lambda: host("sr0").role == C.R_LEADER, "sr0 still leads")
         read_at(ids[0], cid=1)  # the deposed leader answers stale
         read_at(("srg", new_leader), cid=2)
         res = check_history(rec.history())
@@ -1584,17 +1747,28 @@ def main(argv=None) -> int:
         for line in kernels.BUILD_LOG.get(n, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {n}: {line.strip()}")
+    local = {n: sass_local_memory(kernels.build(n)) for n in names}
+    log(f"phase device: local-memory instructions (STL/LDL) in the SASS by "
+        f"kernel: {json.dumps(local)}")
+    if any(local["quorum"].values()):
+        raise AssertionError(
+            f"quorum_kernel's SASS uses local memory: {local['quorum']}")
 
     # phase 2: the quorum kernel against its plain version
     t = time.perf_counter()
     kq = phase_kernel(torch, quorum, dev)
-    log(f"phase kernel: quorum_scan == plain on {kq['shapes']} shapes "
-        f"(max_abs_err {kq['max_abs_err']}); at G={GROUPS} P={PEERS}: "
-        f"kernel {kq['ms']:.6f} ms, plain {kq['plain_ms']:.6f} ms, "
-        f"sort+gather {kq['library_ms']:.6f} ms, card time a call "
-        f"{kq['card_us']:.3f} us (profiler, 50 calls), bound {kq['bound_ms']:.6f} ms "
-        f"({kq['bound_by']}, {kq['bytes']} B) | {card} | "
-        f"{time.perf_counter() - t:.2f} s")
+    log(f"phase kernel: quorum_scan == plain bit for bit on {kq['shapes']} "
+        f"shapes: P = 1..8 at G = {KERNEL_GS}, miscompile rows included, "
+        f"and views at offsets {KERNEL_OFFSETS} (max_abs_err "
+        f"{kq['max_abs_err']}) | {card} | {time.perf_counter() - t:.2f} s")
+    for p in KERNEL_TIMED_PS:
+        log(f"phase kernel, {kernel_row_line(kq['rows'][p])} | {card}")
+    fl = kq["floor"]
+    log(f"phase kernel, empty-launch floor at the grid of G={fl['g']}: "
+        f"{fl['ms']:.6f} ms a call (events), card time {fl['card_us']:.3f} us "
+        f"(profiler, 50 calls) | {card}")
+    log(f"phase kernel, scaling, not a deployment: "
+        f"{kernel_row_line(kq['scaling'])} | {card}")
 
     # phase 3: the step kernels against the plain step, card and CPU
     t = time.perf_counter()
@@ -1709,6 +1883,7 @@ def main(argv=None) -> int:
         "bound_ms": kq["bound_ms"],
         "bound_by": kq["bound_by"],
         "library_ms": kq["library_ms"],
+        "host_ms": kq["host_ms"],
         "card_us": kq["card_us"],
         "launches_by_phase": by_phase("quorum"),
     }] + [{

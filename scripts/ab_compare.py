@@ -24,7 +24,16 @@ first three by default):
   ``chip_smoke.py``'s phase bench): cmds/s, unloaded p50/p99, admitted
   cmds/s;
 - ``reads``: ``python -m ra_tpu_torch.bench --reads --groups 256 --cmds
-  60``: reads/s lease on and off.
+  60``: reads/s lease on and off;
+- ``kernel``: the quorum kernel (``csrc/quorum.cu``) through
+  ``ops.quorum.agreed_commit`` at G = 10240 with P = 3, 5 and 7 and at the
+  scaling shape G = 4,194,304, P = 3: time a call (median of 200
+  event-bracketed calls), its host part (median host clock with the C
+  entry called at G = 0, where it returns before launching), card time
+  (``torch.profiler``, 50 calls), the plain version and ``torch.sort`` +
+  ``gather``; and the empty-launch floor where the checkout's library
+  exports ``ra_quorum_empty_launch``. It reaches the launcher through
+  ``_fns`` or, in checkouts before the kernel's redesign, ``_fn``.
 
 It prints one JSON line per piece and run, tagged with the side and the
 card's name and power limit, and exits non-zero if any piece failed.
@@ -68,6 +77,58 @@ print(json.dumps({k: r[k] for k in (
 """
 
 
+KERNEL = r"""
+import json, statistics, sys, time, numpy as np, torch
+sys.path.insert(0, ".")
+import chip_smoke as cs
+from ra_tpu_torch.ops import kernels
+from ra_tpu_torch.ops import quorum as Q
+kernels.build_many(["quorum"])
+dev = torch.device("cuda", 0)
+real = Q._kernel()
+def swap(fn):
+    if hasattr(Q, "_fns"):
+        Q._fns["ra_quorum_launch"] = fn
+    else:
+        Q._fn = fn
+def no_launch(m, v, nv, out, g, p, stream):
+    return real(m, v, nv, out, 0, p, stream) and 0
+def host_ms(call):
+    swap(no_launch)
+    try:
+        for _ in range(20):
+            call()
+        ts = []
+        for _ in range(200):
+            t0 = time.perf_counter()
+            call()
+            ts.append(time.perf_counter() - t0)
+    finally:
+        swap(real)
+    return statistics.median(ts) * 1e3
+rng = np.random.default_rng(1)
+out = {}
+for g, p in ((10240, 3), (10240, 5), (10240, 7), (4194304, 3)):
+    tm, tv, tn = (torch.from_numpy(a).to(dev) for a in cs.quorum_inputs(rng, g, p))
+    call = lambda: Q.agreed_commit(tm, tv, tn)
+    assert torch.equal(call(), Q.agreed_commit_plain(tm, tv, tn)), (g, p)
+    _, us = cs.profile_kernels(torch, call, 50, ("quorum_kernel",))
+    eff = torch.where(tv, tm, -1)
+    pos = torch.clamp(p - 1 - torch.div(tn, 2, rounding_mode="floor"), 0, p - 1).long()[:, None]
+    nbytes = g * (5 * p + 8)
+    card_us = sum(us.values())
+    out[f"{g}x{p}"] = {
+        "ms": cs.median_ms(call), "host_ms": host_ms(call), "card_us": card_us,
+        "plain_ms": cs.median_ms(lambda: Q.agreed_commit_plain(tm, tv, tn)),
+        "library_ms": cs.median_ms(lambda: torch.sort(eff, dim=-1).values.gather(-1, pos)),
+        "bytes": nbytes, "bound_share": nbytes / cs.HBM_BYTES_PER_S * 1e6 / card_us}
+lib = kernels.load("quorum")
+if hasattr(lib, "ra_quorum_empty_launch"):
+    out["empty_launch"] = cs.launch_floor(torch, Q, 10240, dev)
+print(json.dumps(out))
+"""
+
+
 def run(where: str, args: list, timeout: float) -> str:
     proc = subprocess.run([sys.executable, *args], cwd=where,
                           capture_output=True, text=True, timeout=timeout)
@@ -87,7 +148,8 @@ def bench(where: str, args: list, keys: tuple) -> dict:
     return {k: res.get(k) for k in keys}
 
 
-PIECES = ("step", "decisions", "profile_wave", "main", "headline", "reads")
+PIECES = ("step", "decisions", "profile_wave", "main", "headline", "reads",
+          "kernel")
 
 
 def pieces(where: str, which) -> dict:
@@ -105,6 +167,8 @@ def pieces(where: str, which) -> dict:
                                if ln.startswith("| ") and "device_step" in ln]
     if "main" in which:
         out["main"] = last_json(where, ["-c", MAIN], 900)
+    if "kernel" in which:
+        out["kernel"] = last_json(where, ["-c", KERNEL], 600)
     if "headline" in which:
         out["headline"] = bench(where, ["--cmds", "4"], (
             "value", "p50_ms", "p99_ms", "admitted_cmds_per_sec"))

@@ -55,6 +55,107 @@ def test_kernel_matches_plain_on_the_card(dev, p):
     assert torch.equal(got, Q.agreed_commit_plain(*args))
 
 
+# G around one tile of the kernel (64 groups), a large ragged G, the main
+# path's G and G = 1
+QUORUM_GS = (1, 63, 64, 65, 1001, 10237, 10240)
+
+
+@pytest.mark.parametrize("p", list(range(1, 9)))
+def test_kernel_at_every_g_matches_plain_and_counts_each_launch(dev, p):
+    rng = np.random.default_rng(100 + p)
+    for g in QUORUM_GS:
+        args = [torch.from_numpy(a).to(dev) for a in _quorum_inputs(rng, g, p)]
+        launches = Q.LAUNCHES
+        got = Q.agreed_commit(*args)
+        assert Q.LAUNCHES == launches + 1, g
+        assert torch.equal(got, Q.agreed_commit_plain(*args)), g
+
+
+def _largest_last_rows(p):
+    """Every position 0..P-2 asked of rows whose largest entry sits last
+    (nvcc 12.8 at -O3 returned that last entry for a register select
+    chain over the sorted row)."""
+    rows, counts = [], []
+    for pos in range(p - 1):
+        for head in (list(range(1, p)), list(range(p - 1, 0, -1))):
+            rows.append([10 * h for h in head] + [10 * p])
+            counts.append(2 * (p - 1 - pos))
+    return (np.asarray(rows, np.int32), np.ones((len(rows), p), bool),
+            np.asarray(counts, np.int32))
+
+
+@pytest.mark.parametrize("p", list(range(3, 9)))
+def test_kernel_picks_below_the_last_entry(dev, p):
+    m, v, n = _largest_last_rows(p)
+    got = Q.agreed_commit(*(torch.from_numpy(a).to(dev) for a in (m, v, n)))
+    want = np.sort(m, axis=1)[np.arange(len(m)), p - 1 - n // 2]
+    assert (want < 10 * p).all()
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_kernel_takes_views_at_an_offset(dev):
+    """Input bases that are 4-byte or byte aligned, not 16-byte (views
+    into larger buffers): the kernel stages them with narrower loads."""
+    rng = np.random.default_rng(5)
+    for p in (3, 4, 8):
+        arrays = _quorum_inputs(rng, 1001, p)
+        want = Q.agreed_commit_plain(*(torch.from_numpy(a) for a in arrays))
+        for off in ((1, 1, 1), (2, 3, 3), (3, 5, 2)):
+            views = []
+            for a, o in zip(arrays, off):
+                t = torch.from_numpy(a).to(dev)
+                buf = torch.zeros(t.numel() + o, dtype=t.dtype, device=dev)
+                views.append(buf[o:].view(t.shape))
+                views[-1].copy_(t)
+            assert views[1].data_ptr() % 16
+            assert torch.equal(Q.agreed_commit(*views).cpu(), want), (p, off)
+
+
+def test_every_tiling_matches_plain(dev):
+    """The sweep's entry (``ra_quorum_launch_tiled``) in both designs at
+    every block size and groups a thread it takes, at aligned bases and
+    at an offset; a tiling it does not take is refused with
+    cudaErrorInvalidValue before any launch."""
+    fn = Q._kernel("ra_quorum_launch_tiled")
+    stream = torch._C._cuda_getCurrentRawStream(dev.index or 0)
+    rng = np.random.default_rng(9)
+    for p in (1, 3, 7, 8):
+        for g in (65, 10237):
+            m, v, n = (torch.from_numpy(a).to(dev)
+                       for a in _quorum_inputs(rng, g, p))
+            want = Q.agreed_commit_plain(m, v, n)
+            vbuf = torch.zeros(v.numel() + 3, dtype=torch.bool, device=dev)
+            v_off = vbuf[3:].view(v.shape)
+            v_off.copy_(v)
+            for direct, threads, gpt, vv in (
+                    (d, t, k, x) for d in (0, 1) for t in (32, 64, 128, 256)
+                    for k in (1, 2, 4) for x in (v, v_off)):
+                out = torch.full((g,), 7, dtype=torch.int32, device=dev)
+                assert fn(m.data_ptr(), vv.data_ptr(), n.data_ptr(),
+                          out.data_ptr(), g, p, threads, gpt, direct,
+                          stream) == 0
+                assert torch.equal(out, want), (p, g, direct, threads, gpt)
+    for threads, gpt in ((48, 1), (512, 1), (64, 3)):
+        assert fn(m.data_ptr(), v.data_ptr(), n.data_ptr(), out.data_ptr(),
+                  g, p, threads, gpt, 0, stream) != 0
+
+
+def test_kernel_wrapper_refuses_on_the_card(dev):
+    m = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    v = torch.ones((4, 9), dtype=torch.bool, device=dev)
+    n = torch.full((4,), 9, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        Q.agreed_commit(m, v, n)
+    with pytest.raises(ValueError):
+        Q.agreed_commit(m[:, :3], v[:, :3], n)
+    with pytest.raises(ValueError):
+        Q.agreed_commit(m[:, :3].contiguous(), v[:, :3].contiguous(), n.cpu())
+    launches = Q.LAUNCHES
+    empty = Q.agreed_commit(m[:0, :3].contiguous(), v[:0, :3].contiguous(), n[:0])
+    assert empty.shape == (0,) and empty.device.type == "cuda"
+    assert Q.LAUNCHES == launches
+
+
 def test_fused_step_on_the_card_matches_the_cpu(dev):
     rng = np.random.default_rng(3)
     g, p, k = 512, 3, 16
