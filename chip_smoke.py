@@ -6,15 +6,21 @@ Run from the root of the repository, on a machine with a CUDA card:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``ra_tpu_torch/csrc/`` (one
-``nvcc`` per source, all at once), holds each against its plain PyTorch
-version on the card: the quorum scan (``quorum.cu``) and the fused step
+``nvcc`` per source, all at once; the quorum library's SASS must hold no
+local-memory instruction), holds each against its plain PyTorch
+version on the card: the quorum scan (``quorum.cu``) bit for bit at
+P = 1..8 over ragged G, unaligned views and the rows an nvcc miscompile
+once got wrong, then timed at 10240 groups with P = 3, 5 and 7 (a call,
+its host part, card time, bound, plain version, sort + gather) beside
+the card's empty-launch floor and a scaling row of 4,194,304 groups (not
+a deployment); and the fused step
 kernels (``step.cu``, full width and active set) over edge inputs at
 P = 1..16 and 33 (the register instances and the runtime-width one),
 and at an odd G from an unaligned ring, against the plain torch-op step
 on the card and on the CPU; a profile of 50 steps must show each step as
 one launch of ``step_kernel`` and nothing else (no memset), and gives
 the card time a step, beside the host part of a call (the launch
-replaced by a no-op) and the quorum kernel's card time a call. Then it
+replaced by a no-op). Then it
 runs the main path, the durable replicated write of the batch backend:
 three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
 WAL-backed logs, cooperative pipelined stepping, through the step
@@ -279,13 +285,12 @@ def host_part_quorum_ms(quorum, call, n: int = TIMED_CALLS,
     return statistics.median(times) * 1e3
 
 
-def quorum_row(torch, quorum, rng, g: int, p: int, dev,
-               yardsticks: bool = True) -> dict:
+def quorum_row(torch, quorum, rng, g: int, p: int, dev) -> dict:
     """Times of the scan over G groups of P: a call (median of event-
     bracketed calls), its host part, its card time (profiler, 50 calls),
-    the bound and its share; with ``yardsticks``, the plain version and
-    the library call (``torch.sort`` + ``gather`` over the masked matrix,
-    the mask and positions prepared outside the timed call)."""
+    the bound and its share, the plain version and the library call
+    (``torch.sort`` + ``gather`` over the masked matrix, the mask and
+    positions prepared outside the timed call)."""
     m, v, nv = quorum_inputs(rng, g, p)
     tm, tv, tn = (torch.from_numpy(a).to(dev) for a in (m, v, nv))
 
@@ -297,18 +302,16 @@ def quorum_row(torch, quorum, rng, g: int, p: int, dev,
     bound_ms, bound_by, nbytes, nops = quorum_bound(g, p)
     _, dev_us = profile_kernels(torch, call, 50, ("quorum_kernel",))
     card_us = sum(dev_us.values())
-    row = {"g": g, "p": p, "ms": median_ms(call),
-           "host_ms": host_part_quorum_ms(quorum, call), "card_us": card_us,
-           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-           "ops": nops, "bound_share": bound_ms * 1e3 / card_us}
-    if yardsticks:
-        row["plain_ms"] = median_ms(lambda: quorum.agreed_commit_plain(tm, tv, tn))
-        eff = torch.where(tv, tm, -1)
-        pos = torch.clamp(p - 1 - torch.div(tn, 2, rounding_mode="floor"),
-                          0, p - 1).long()[:, None]
-        row["library_ms"] = median_ms(
-            lambda: torch.sort(eff, dim=-1).values.gather(-1, pos))
-    return row
+    eff = torch.where(tv, tm, -1)
+    pos = torch.clamp(p - 1 - torch.div(tn, 2, rounding_mode="floor"),
+                      0, p - 1).long()[:, None]
+    return {"g": g, "p": p, "ms": median_ms(call),
+            "host_ms": host_part_quorum_ms(quorum, call), "card_us": card_us,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": nops, "bound_share": bound_ms * 1e3 / card_us,
+            "plain_ms": median_ms(lambda: quorum.agreed_commit_plain(tm, tv, tn)),
+            "library_ms": median_ms(
+                lambda: torch.sort(eff, dim=-1).values.gather(-1, pos))}
 
 
 def launch_floor(torch, quorum, g: int, dev) -> dict:
@@ -361,7 +364,7 @@ def phase_kernel(torch, quorum, dev) -> dict:
     rows = {p: quorum_row(torch, quorum, rng, GROUPS, p, dev)
             for p in KERNEL_TIMED_PS}
     floor = launch_floor(torch, quorum, GROUPS, dev)
-    scaling = quorum_row(torch, quorum, rng, *SCALING, dev, yardsticks=False)
+    scaling = quorum_row(torch, quorum, rng, *SCALING, dev)
     main = rows[PEERS]
     return {"shapes": shapes, "max_abs_err": max_err, "rows": rows,
             "floor": floor, "scaling": scaling,
@@ -371,13 +374,12 @@ def phase_kernel(torch, quorum, dev) -> dict:
 
 
 def kernel_row_line(r: dict) -> str:
-    extra = (f", plain {r['plain_ms']:.6f} ms, sort+gather "
-             f"{r['library_ms']:.6f} ms" if "plain_ms" in r else "")
     return (f"G={r['g']} P={r['p']}: kernel {r['ms']:.6f} ms a call, host "
             f"part {r['host_ms']:.6f} ms (median host clock, C entry at "
             f"G = 0), card time {r['card_us']:.3f} us (profiler, 50 calls), "
             f"bound {r['bound_ms']:.9f} ms ({r['bound_by']}, {r['bytes']} B, "
-            f"{r['ops']} ops), share of bound {r['bound_share']:.4f}{extra}")
+            f"{r['ops']} ops), share of bound {r['bound_share']:.4f}, plain "
+            f"{r['plain_ms']:.6f} ms, sort+gather {r['library_ms']:.6f} ms")
 
 
 # ---------------------------------------------------------------------------

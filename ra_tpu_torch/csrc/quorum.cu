@@ -11,46 +11,49 @@
 // bool bytes and G int32 voter counts and writes G int32 results: G*(5P+8)
 // bytes, a few dozen integer operations a group.
 // - At the main path's shape, G = 10240, P = 3 (235,520 bytes), the byte
-//   bound is 0.07 us, below the time of any launch: the card's empty-launch
-//   floor bounds it, and the host's part of a call (the wrapper in
-//   ops/quorum.py) dwarfs both.
+//   bound is 0.07 us, far below the time of any launch: the card's
+//   empty-launch floor (an empty kernel at this grid) bounds it, plus one
+//   chain of dependent latencies a thread (its loads, the pick, its
+//   store); the host's part of a call (the wrapper, ops/quorum.py)
+//   dwarfs both.
 // - At a shape whose bytes exceed the 50 MB L2 (G = 4,194,304, P = 3:
 //   96.5 MB, 28.8 us at 3.35 TB/s) the bytes bound it.
 //
-// Design, against each:
-// - Few serial steps a block, and enough blocks. A block of kThreads
-//   threads owns a tile of kThreads * kGroupsPerThread consecutive groups
-//   (chosen by measurement on the card: scripts/quorum_sweep.py). At
-//   G = 10240 that is more than one block per SM of the 132, so no SM
-//   runs a long queue of rows; each block does one round of loads, one
-//   barrier, its picks and one round of coalesced stores, the shortest
-//   chain above the launch floor.
-// - Wide, coalesced loads. A block stages its tile of the three inputs,
-//   three contiguous segments (tile*P*4, tile*P and tile*4 bytes), into
-//   shared memory with 16-byte loads, every thread issuing its loads
-//   before any waits, so a block keeps its whole tile in flight; each
-//   thread then reads its own rows from shared memory (vector reads where
-//   P makes the row 8- or 16-byte aligned). A segment whose base is not
-//   16-byte aligned (a view at an offset) takes 4-byte or 1-byte loads,
-//   and the ragged tail of the last tile (G not a multiple of the tile,
-//   G below one tile, G = 1) is masked by the byte count. Plain vector
-//   loads, not TMA: the rows are 4 to 32 bytes wide, too narrow for a
-//   2-D tensor-map box to pay, and a 1-D bulk copy (as step.cu stages its
-//   ring tile) needs 16-byte aligned addresses and sizes, an mbarrier and
-//   a proxy fence, while the unaligned views and the tail would still
-//   need the plain path; a tile is 0.2-1.5 KB, a few loads a thread.
+// Design, against each (scripts/quorum_sweep.py times the choices;
+// PERF.md section 6 has the numbers):
+// - One thread a group, every load independent: the thread issues its P
+//   match words, its P voting bytes and its voter count at once and
+//   applies the voting mask when they have arrived, so its chain is one
+//   load latency, the pick and one store (a match load guarded by its
+//   voting byte would wait for that byte first). Where the bases are
+//   16-byte aligned a row of P int32 goes in 16-byte loads when 4 | P and
+//   8-byte loads when 2 | P, its voting bytes in one 8- or 4-byte load
+//   when 8 | P or 4 | P; P = 3, 5, 7 take word and byte loads, which L1
+//   coalesces across a warp's neighbouring rows.
+// - Blocks of kThreads = 128, 80 blocks at G = 10240: against 32, 64 and
+//   256 threads, and against 2 or 4 consecutive groups a thread with wider
+//   loads, it was the fastest or within noise at G = 10240 with P = 3, 5,
+//   7 and at the scaling shape.
+// - No shared memory. Blocks that staged their tile of rows in shared
+//   memory with 16-byte loads and then read each row from there measured
+//   slower at every shape: the store, barrier and reload lengthen a chain
+//   that is latency-bound at the main path, and at the scaling shape L1
+//   already coalesces the narrow row loads. For the same reasons neither
+//   a 1-D bulk copy nor a TMA tensor map (rows of 4 to 32 bytes are too
+//   narrow for a 2-D box to pay) was taken.
 // - A pick in registers (quorum_net.cuh): the rank form, no sort and no
-//   per-thread array.
-// - The host part: one exported entry with fixed ctypes argument types,
-//   the stream's raw handle, and a check that costs one tuple comparison
-//   for inputs seen before (ops/quorum.py).
+//   per-thread array; ptxas reports no stack and no spills, and the SASS
+//   has no STL/LDL (chip_smoke.py checks it at every build).
+// - The host part: one C entry with fixed ctypes argument types, the
+//   stream's raw handle, and a check that costs one tuple comparison for
+//   inputs of the shapes and devices seen last (ops/quorum.py).
 //
 // Exported (plain C, loaded with ctypes):
-// - ra_quorum_launch: the scan at the tuned tile;
-// - ra_quorum_launch_tiled: the same at a given block size and groups a
-//   thread (the sweep's entry);
-// - ra_quorum_empty_launch: an empty kernel at the grid of the scan at G
-//   (the card's launch floor beside the kernel's card time).
+// - ra_quorum_launch: the scan at kThreads a block;
+// - ra_quorum_launch_tiled: the same at a given block size (the sweep's
+//   entry);
+// - ra_quorum_empty_launch: an empty kernel at the scan's grid for G (the
+//   card's launch floor beside the kernel's card time).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,401 +62,143 @@
 
 namespace {
 
-constexpr int kThreads = 64;
-constexpr int kGroupsPerThread = 1;
-constexpr int kDirect = 0;
+constexpr int kThreads = 128;
 constexpr int kMaxThreads = 256;
 
-__host__ __device__ constexpr int round16(int n) { return (n + 15) & ~15; }
-
-// shared bytes of a tile (Staged below)
-__host__ __device__ constexpr int tile_bytes(int tile, int p) {
-  return tile * p * 4 + round16(tile * p) + tile * 4;
-}
-
 // the arguments the kernel takes: G >= 1, P in 1..8, a block of 32..256
-// threads in whole warps, 1, 2 or 4 groups a thread
-bool valid(int g, int p, int threads, int gpt) {
+// threads in whole warps
+bool valid(int g, int p, int threads) {
   return g > 0 && p >= 1 && p <= 8 && threads >= 32 &&
-         threads <= kMaxThreads && threads % 32 == 0 &&
-         (gpt == 1 || gpt == 2 || gpt == 4);
+         threads <= kMaxThreads && threads % 32 == 0;
 }
 
-// blocks of the grid for G groups at `tile` groups a block
-int grid_of(int g, int tile) {
-  return static_cast<int>((static_cast<int64_t>(g) + tile - 1) / tile);
+// blocks of the grid for G groups at `threads` a block
+int grid_of(int g, int threads) {
+  return static_cast<int>((static_cast<int64_t>(g) + threads - 1) / threads);
 }
 
-// Copy bytes [from, bytes) from device memory at `src` into shared memory
-// at `dst`, the block's threads striding over them: 4-byte loads where
-// `src` + `from` is 4-byte aligned and the bytes are whole words, else
-// byte by byte. The path of segments that are not 16-byte aligned, and
-// of the tail of one that is.
-__device__ __forceinline__ void stage_narrow(void* dst, const void* src,
-                                             int from, int bytes) {
-  const uint8_t* s = static_cast<const uint8_t*>(src);
-  uint8_t* d = static_cast<uint8_t*>(dst);
-  if (((reinterpret_cast<uintptr_t>(s + from) | from | bytes) & 3) == 0) {
-    const uint32_t* s4 = reinterpret_cast<const uint32_t*>(s + from);
-    uint32_t* d4 = reinterpret_cast<uint32_t*>(d + from);
-    for (int i = threadIdx.x; i < (bytes - from) >> 2; i += blockDim.x)
-      d4[i] = __ldg(s4 + i);
-    return;
-  }
-  for (int i = from + threadIdx.x; i < bytes; i += blockDim.x)
-    d[i] = __ldg(s + i);
-}
-
-// this thread's 16-byte chunks of a segment of n chunks: chunk
-// threadIdx.x + k * blockDim.x for k < N
-template <int N>
-__device__ __forceinline__ void load_chunks(uint4 (&r)[N], const void* src,
-                                            int n) {
-  const uint4* s = static_cast<const uint4*>(src);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < n) r[k] = __ldg(s + i);
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_chunks(void* dst, const uint4 (&r)[N],
-                                             int n) {
-  uint4* d = static_cast<uint4*>(dst);
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
-    if (i < n) d[i] = r[k];
-  }
-}
-
-// row r of the staged tile into registers, non-voters as -1; a row of
-// P int32 is 16-byte aligned in shared memory when 4 | P, 8-byte when
-// 2 | P, and its P voting bytes 8-byte aligned when 8 | P, 4-byte when
-// 4 | P
+// Group i: its row into registers, every load issued before any is used,
+// the voting mask applied, the pick stored. `aligned`: all four bases are
+// 16-byte aligned, so the row's P int32 are 16-byte aligned when 4 | P
+// and 8-byte aligned when 2 | P, and its P voting bytes 8-byte aligned
+// when 8 | P and 4-byte aligned when 4 | P.
 template <int P>
-__device__ __forceinline__ void load_row(int32_t (&m)[P],
-                                         const int32_t* s_match,
-                                         const uint8_t* s_vote, int r) {
-  const int32_t* row = s_match + r * P;
-  if constexpr (P % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < P / 4; ++q) {
-      const int4 v = reinterpret_cast<const int4*>(row)[q];
-      m[4 * q] = v.x;
-      m[4 * q + 1] = v.y;
-      m[4 * q + 2] = v.z;
-      m[4 * q + 3] = v.w;
-    }
-  } else if constexpr (P % 2 == 0) {
-#pragma unroll
-    for (int q = 0; q < P / 2; ++q) {
-      const int2 v = reinterpret_cast<const int2*>(row)[q];
-      m[2 * q] = v.x;
-      m[2 * q + 1] = v.y;
-    }
-  } else {
-#pragma unroll
-    for (int s = 0; s < P; ++s) m[s] = row[s];
-  }
-  const uint8_t* vrow = s_vote + r * P;
-  if constexpr (P % 8 == 0) {
-    const uint2 w = *reinterpret_cast<const uint2*>(vrow);
-#pragma unroll
-    for (int s = 0; s < P; ++s) {
-      const uint32_t word = s < 4 ? w.x : w.y;
-      if (((word >> (8 * (s & 3))) & 0xFF) == 0) m[s] = -1;
-    }
-  } else if constexpr (P % 4 == 0) {
-    const uint32_t w = *reinterpret_cast<const uint32_t*>(vrow);
-#pragma unroll
-    for (int s = 0; s < P; ++s)
-      if (((w >> (8 * s)) & 0xFF) == 0) m[s] = -1;
-  } else {
-#pragma unroll
-    for (int s = 0; s < P; ++s)
-      if (vrow[s] == 0) m[s] = -1;
-  }
-}
-
-// the block's tile of the three inputs in shared memory: match rows,
-// voting rows (padded to 16 bytes so the voter counts start aligned),
-// voter counts
-struct Staged {
-  int32_t* match;
-  uint8_t* vote;
-  int32_t* nv;
-};
-
-template <int P>
-__device__ __forceinline__ Staged staged_at(unsigned char* smem, int tile) {
-  uint8_t* vote = smem + tile * P * 4;
-  return {reinterpret_cast<int32_t*>(smem), vote,
-          reinterpret_cast<int32_t*>(vote + round16(tile * P))};
-}
-
-// this thread's share of staging rows [base, base + rows). Where the three
-// segments start 16-byte aligned (always, for tensors from PyTorch's
-// allocator), each thread loads all its 16-byte chunks of the three into
-// registers before it stores any, so the block's whole tile is in flight
-// at once (a tile of blockDim.x * GPT rows is GPT*P/4 match chunks, GPT*P/16
-// voting chunks and GPT/4 voter-count chunks a thread, rounded up); the
-// bytes past the last whole chunk (the last tile's) follow. Otherwise
-// each segment takes stage_narrow.
-template <int P, int GPT>
-__device__ __forceinline__ void stage_tile(const int32_t* match,
+__device__ __forceinline__ void pick_group(const int32_t* match,
                                            const uint8_t* voting,
                                            const int32_t* nvoters,
-                                           int64_t base, int rows,
-                                           const Staged& st) {
-  const void* sm = match + base * P;
-  const void* sv = voting + base * P;
-  const void* sn = nvoters + base;
-  const int bm = rows * P * 4, bv = rows * P, bn = rows * 4;
-  if (((reinterpret_cast<uintptr_t>(sm) | reinterpret_cast<uintptr_t>(sv) |
-        reinterpret_cast<uintptr_t>(sn)) & 15) != 0) {
-    stage_narrow(st.match, sm, 0, bm);
-    stage_narrow(st.vote, sv, 0, bv);
-    stage_narrow(st.nv, sn, 0, bn);
-    return;
-  }
-  uint4 rm[(GPT * P + 3) / 4], rv[(GPT * P + 15) / 16], rn[(GPT + 3) / 4];
-  load_chunks(rm, sm, bm >> 4);
-  load_chunks(rv, sv, bv >> 4);
-  load_chunks(rn, sn, bn >> 4);
-  store_chunks(st.match, rm, bm >> 4);
-  store_chunks(st.vote, rv, bv >> 4);
-  store_chunks(st.nv, rn, bn >> 4);
-  stage_narrow(st.match, sm, bm & ~15, bm);
-  stage_narrow(st.vote, sv, bv & ~15, bv);
-  stage_narrow(st.nv, sn, bn & ~15, bn);
-}
-
-// this thread's rows of the staged tile: pick and store
-template <int P, int GPT>
-__device__ __forceinline__ void pick_rows(const Staged& st, int32_t* out,
-                                          int64_t base, int rows) {
+                                           int32_t* out, int64_t i,
+                                           bool aligned) {
+  const int32_t* row = match + i * P;
+  const uint8_t* vrow = voting + i * P;
+  int32_t m[P];
+  uint32_t vote[P];
+  if (P % 2 == 0 && aligned) {
+    if constexpr (P % 4 == 0) {
 #pragma unroll
-  for (int k = 0; k < GPT; ++k) {
-    const int r = threadIdx.x + k * blockDim.x;
-    if (r < rows) {
-      int32_t m[P];
-      load_row<P>(m, st.match, st.vote, r);
-      out[base + r] = quorum_pick<P>(m, st.nv[r]);
+      for (int q = 0; q < P / 4; ++q) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(row) + q);
+        m[4 * q] = v.x;
+        m[4 * q + 1] = v.y;
+        m[4 * q + 2] = v.z;
+        m[4 * q + 3] = v.w;
+      }
+      uint32_t w[P / 4];
+      if constexpr (P == 8) {
+        const uint2 v = __ldg(reinterpret_cast<const uint2*>(vrow));
+        w[0] = v.x;
+        w[1] = v.y;
+      } else {
+        w[0] = __ldg(reinterpret_cast<const uint32_t*>(vrow));
+      }
+#pragma unroll
+      for (int s = 0; s < P; ++s) vote[s] = (w[s / 4] >> (8 * (s % 4))) & 0xFF;
+    } else {
+#pragma unroll
+      for (int q = 0; q < P / 2; ++q) {
+        const int2 v = __ldg(reinterpret_cast<const int2*>(row) + q);
+        m[2 * q] = v.x;
+        m[2 * q + 1] = v.y;
+      }
+#pragma unroll
+      for (int s = 0; s < P; ++s) vote[s] = __ldg(vrow + s);
+    }
+  } else {
+#pragma unroll
+    for (int s = 0; s < P; ++s) {
+      m[s] = __ldg(row + s);
+      vote[s] = __ldg(vrow + s);
     }
   }
+  const int32_t nv = __ldg(nvoters + i);
+#pragma unroll
+  for (int s = 0; s < P; ++s) m[s] = vote[s] ? m[s] : -1;
+  out[i] = quorum_pick<P>(m, nv);
 }
 
-template <int P, int GPT>
+template <int P>
 __global__ void __launch_bounds__(kMaxThreads)
     quorum_kernel(const int32_t* __restrict__ match,
                   const uint8_t* __restrict__ voting,
                   const int32_t* __restrict__ nvoters,
-                  int32_t* __restrict__ out, int g) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int tile = blockDim.x * GPT;
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * tile;
-  const int64_t left = g - base;
-  const int rows = left < tile ? static_cast<int>(left) : tile;
-  const Staged st = staged_at<P>(smem, tile);
-  stage_tile<P, GPT>(match, voting, nvoters, base, rows, st);
-  __syncthreads();
-  pick_rows<P, GPT>(st, out, base, rows);
-}
-
-// ---- the direct variant: GPT consecutive groups a thread, read from
-// device memory straight into registers with the widest vector loads its
-// bytes allow (no shared memory, no barrier)
-
-// W words from `src`, aligned to 16 bytes if 4 | W, to 8 if 2 | W, else 4
-template <int W>
-__device__ __forceinline__ void load_words(uint32_t (&w)[W], const void* src) {
-  if constexpr (W % 4 == 0) {
-    const uint4* s = static_cast<const uint4*>(src);
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q) {
-      const uint4 v = __ldg(s + q);
-      w[4 * q] = v.x;
-      w[4 * q + 1] = v.y;
-      w[4 * q + 2] = v.z;
-      w[4 * q + 3] = v.w;
-    }
-  } else if constexpr (W % 2 == 0) {
-    const uint2* s = static_cast<const uint2*>(src);
-#pragma unroll
-    for (int q = 0; q < W / 2; ++q) {
-      const uint2 v = __ldg(s + q);
-      w[2 * q] = v.x;
-      w[2 * q + 1] = v.y;
-    }
-  } else {
-    const uint32_t* s = static_cast<const uint32_t*>(src);
-#pragma unroll
-    for (int q = 0; q < W; ++q) w[q] = __ldg(s + q);
-  }
-}
-
-template <int W>
-__device__ __forceinline__ void store_words(void* dst, const uint32_t (&w)[W]) {
-  if constexpr (W % 4 == 0) {
-    uint4* d = static_cast<uint4*>(dst);
-#pragma unroll
-    for (int q = 0; q < W / 4; ++q)
-      d[q] = uint4{w[4 * q], w[4 * q + 1], w[4 * q + 2], w[4 * q + 3]};
-  } else if constexpr (W % 2 == 0) {
-    uint2* d = static_cast<uint2*>(dst);
-#pragma unroll
-    for (int q = 0; q < W / 2; ++q) d[q] = uint2{w[2 * q], w[2 * q + 1]};
-  } else {
-    uint32_t* d = static_cast<uint32_t*>(dst);
-#pragma unroll
-    for (int q = 0; q < W; ++q) d[q] = w[q];
-  }
-}
-
-// groups [first, first + GPT) of this thread: with `vec` (all inside G, all
-// four bases 16-byte aligned, so each of the thread's spans is aligned to
-// its vector width) by vector loads and stores, else element by element
-template <int P, int GPT>
-__device__ __forceinline__ void pick_direct(const int32_t* match,
-                                            const uint8_t* voting,
-                                            const int32_t* nvoters,
-                                            int32_t* out, int64_t first,
-                                            int g, bool vec) {
-  if (!vec) {
-#pragma unroll
-    for (int k = 0; k < GPT; ++k) {
-      const int64_t i = first + k;
-      if (i < g) {
-        int32_t m[P];
-#pragma unroll
-        for (int s = 0; s < P; ++s)
-          m[s] = __ldg(voting + i * P + s) ? __ldg(match + i * P + s) : -1;
-        out[i] = quorum_pick<P>(m, __ldg(nvoters + i));
-      }
-    }
-    return;
-  }
-  uint32_t mw[GPT * P], nw[GPT], res[GPT];
-  load_words<GPT * P>(mw, match + first * P);
-  load_words<GPT>(nw, nvoters + first);
-  uint32_t vb[GPT * P];  // the voting bytes, one a word
-  if constexpr ((GPT * P) % 4 == 0) {
-    uint32_t vw[GPT * P / 4];
-    load_words<GPT * P / 4>(vw, voting + first * P);
-#pragma unroll
-    for (int j = 0; j < GPT * P; ++j) vb[j] = (vw[j / 4] >> (8 * (j % 4))) & 0xFF;
-  } else {
-#pragma unroll
-    for (int j = 0; j < GPT * P; ++j) vb[j] = __ldg(voting + first * P + j);
-  }
-#pragma unroll
-  for (int k = 0; k < GPT; ++k) {
-    int32_t m[P];
-#pragma unroll
-    for (int s = 0; s < P; ++s)
-      m[s] = vb[k * P + s] ? static_cast<int32_t>(mw[k * P + s]) : -1;
-    res[k] = static_cast<uint32_t>(quorum_pick<P>(m, static_cast<int32_t>(nw[k])));
-  }
-  store_words<GPT>(out + first, res);
-}
-
-template <int P, int GPT>
-__global__ void __launch_bounds__(kMaxThreads)
-    quorum_kernel_direct(const int32_t* __restrict__ match,
-                         const uint8_t* __restrict__ voting,
-                         const int32_t* __restrict__ nvoters,
-                         int32_t* __restrict__ out, int g, int aligned) {
-  const int64_t first =
-      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) * GPT;
-  if (first >= g) return;
-  pick_direct<P, GPT>(match, voting, nvoters, out, first, g,
-                      aligned && first + GPT <= g);
+                  int32_t* __restrict__ out, int g, int aligned) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < g) pick_group<P>(match, voting, nvoters, out, i, aligned != 0);
 }
 
 // ---- host launchers (nvcc only)
 
 __global__ void empty_kernel() {}
 
-struct Args {
-  const void* match;
-  const void* voting;
-  const void* nvoters;
-  void* out;
-  int g;
-  bool direct;
-};
-
-template <int P, int GPT>
-void launch(const Args& a, int threads, cudaStream_t stream) {
-  const int tile = threads * GPT;
-  const auto* m = static_cast<const int32_t*>(a.match);
-  const auto* v = static_cast<const uint8_t*>(a.voting);
-  const auto* n = static_cast<const int32_t*>(a.nvoters);
-  auto* o = static_cast<int32_t*>(a.out);
-  if (a.direct) {
-    const int aligned =
-        ((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(v) |
-          reinterpret_cast<uintptr_t>(n) | reinterpret_cast<uintptr_t>(o)) &
-         15) == 0;
-    quorum_kernel_direct<P, GPT><<<grid_of(a.g, tile), threads, 0, stream>>>(
-        m, v, n, o, a.g, aligned);
-  } else {
-    quorum_kernel<P, GPT><<<grid_of(a.g, tile), threads, tile_bytes(tile, P),
-                            stream>>>(m, v, n, o, a.g);
-  }
-}
-
 template <int P>
-void launch_gpt(const Args& a, int threads, int gpt, cudaStream_t stream) {
-  switch (gpt) {
-    case 1: launch<P, 1>(a, threads, stream); break;
-    case 2: launch<P, 2>(a, threads, stream); break;
-    default: launch<P, 4>(a, threads, stream); break;
-  }
+void launch(const void* match, const void* voting, const void* nvoters,
+            void* out, int g, int threads, cudaStream_t stream) {
+  const int aligned =
+      ((reinterpret_cast<uintptr_t>(match) | reinterpret_cast<uintptr_t>(voting) |
+        reinterpret_cast<uintptr_t>(nvoters) | reinterpret_cast<uintptr_t>(out)) &
+       15) == 0;
+  quorum_kernel<P><<<grid_of(g, threads), threads, 0, stream>>>(
+      static_cast<const int32_t*>(match), static_cast<const uint8_t*>(voting),
+      static_cast<const int32_t*>(nvoters), static_cast<int32_t*>(out), g,
+      aligned);
 }
 
 }  // namespace
 
-// Launch on `stream` at `threads` a block and `gpt` groups a thread, the
-// staged kernel or (`direct`) the direct one; no
-// synchronisation, no allocation. Returns cudaGetLastError() after the
-// launch (0 on success), or cudaErrorInvalidValue, before any launch, for
-// arguments the kernel does not take (G = 0 among them: chip_smoke.py
-// times the host part of a call through that return).
+// Launch on `stream` at `threads` a block; no synchronisation, no
+// allocation. Returns cudaGetLastError() after the launch (0 on success),
+// or cudaErrorInvalidValue, before any launch, for arguments the kernel
+// does not take (G = 0 among them: chip_smoke.py times the host part of a
+// call through that return).
 extern "C" int ra_quorum_launch_tiled(const void* match, const void* voting,
                                       const void* nvoters, void* out, int g,
-                                      int p, int threads, int gpt, int direct,
-                                      void* stream) {
-  if (!valid(g, p, threads, gpt)) return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{match, voting, nvoters, out, g, direct != 0};
+                                      int p, int threads, void* stream) {
+  if (!valid(g, p, threads)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (p) {
-    case 1: launch_gpt<1>(a, threads, gpt, s); break;
-    case 2: launch_gpt<2>(a, threads, gpt, s); break;
-    case 3: launch_gpt<3>(a, threads, gpt, s); break;
-    case 4: launch_gpt<4>(a, threads, gpt, s); break;
-    case 5: launch_gpt<5>(a, threads, gpt, s); break;
-    case 6: launch_gpt<6>(a, threads, gpt, s); break;
-    case 7: launch_gpt<7>(a, threads, gpt, s); break;
-    default: launch_gpt<8>(a, threads, gpt, s); break;
+    case 1: launch<1>(match, voting, nvoters, out, g, threads, s); break;
+    case 2: launch<2>(match, voting, nvoters, out, g, threads, s); break;
+    case 3: launch<3>(match, voting, nvoters, out, g, threads, s); break;
+    case 4: launch<4>(match, voting, nvoters, out, g, threads, s); break;
+    case 5: launch<5>(match, voting, nvoters, out, g, threads, s); break;
+    case 6: launch<6>(match, voting, nvoters, out, g, threads, s); break;
+    case 7: launch<7>(match, voting, nvoters, out, g, threads, s); break;
+    default: launch<8>(match, voting, nvoters, out, g, threads, s); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The scan at the tuned tile.
+// The scan at kThreads a block.
 extern "C" int ra_quorum_launch(const void* match, const void* voting,
                                 const void* nvoters, void* out, int g, int p,
                                 void* stream) {
   return ra_quorum_launch_tiled(match, voting, nvoters, out, g, p, kThreads,
-                                kGroupsPerThread, kDirect, stream);
+                                stream);
 }
 
 // An empty kernel at the grid and block of ra_quorum_launch at G.
 extern "C" int ra_quorum_empty_launch(int g, void* stream) {
   if (g <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  empty_kernel<<<grid_of(g, kThreads * kGroupsPerThread), kThreads, 0,
+  empty_kernel<<<grid_of(g, kThreads), kThreads, 0,
                  static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -736,7 +736,7 @@ __device__ __forceinline__ void step_column(const Args& a, const Tile& t,
     int32_t eff[P];
 #pragma unroll
     for (int s = 0; s < P; ++s) eff[s] = eff_at(s, members[s], match3[s]);
-    agreed = quorum_pick<P>(eff, n_voters);
+    agreed = quorum_pick_local<P>(eff, n_voters);
   } else {
     agreed = quorum_pick_rank(
         [&](int s) {

@@ -10,10 +10,9 @@ agreed_commit src/ra_server.erl:3684-3688; scalar spec:
   JAX package's ``agreed_commit_sort``: mask, sort along the peer axis,
   pick ascending position ``clamp(P - 1 - nvoters // 2, 0, P - 1)``.
 - ``agreed_commit`` is the wrapper. A CPU tensor goes to the plain
-  version; a CUDA tensor launches the kernel of ``csrc/quorum.cu`` (a
-  block stages a tile of groups in shared memory, a thread picks each
-  group's entry by rank in registers) or raises. It never falls back to
-  the plain version on the card.
+  version; a CUDA tensor launches the kernel of ``csrc/quorum.cu`` (one
+  thread a group: its row loaded into registers, its entry picked by
+  rank) or raises. It never falls back to the plain version on the card.
 
 It replaces the TPU kernel ``ra_tpu/ops/pallas_quorum.py::_quorum_kernel``.
 
@@ -40,7 +39,7 @@ _fns: Dict[str, object] = {}
 _vp, _i = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "ra_quorum_launch": [_vp, _vp, _vp, _vp, _i, _i, _vp],
-    "ra_quorum_launch_tiled": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    "ra_quorum_launch_tiled": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     "ra_quorum_empty_launch": [_i, _vp],
 }
 # (shapes, devices) of the last inputs that passed _check; replaced
@@ -118,17 +117,11 @@ def agreed_commit(
     out = match.new_empty(g)  # int32, on match's device
     if g == 0:
         return out
-    idx = sig[3].index
     # the current stream's raw pointer (torch.cuda.current_stream builds a
     # Stream object, microseconds of a call's host time)
-    stream = torch._C._cuda_getCurrentRawStream(idx)
-    args = (match.data_ptr(), voting.data_ptr(), nvoters.data_ptr(),
-            out.data_ptr(), g, p, stream)
-    if idx == torch.cuda.current_device():
-        rc = _kernel()(*args)
-    else:
-        with torch.cuda.device(idx):  # the runtime launches on the current device
-            rc = _kernel()(*args)
+    stream = torch._C._cuda_getCurrentRawStream(sig[3].index)
+    rc = _kernel()(match.data_ptr(), voting.data_ptr(), nvoters.data_ptr(),
+                   out.data_ptr(), g, p, stream)
     if rc != 0:
         raise RuntimeError(f"quorum kernel launch failed: CUDA error {rc}")
     LAUNCHES += 1

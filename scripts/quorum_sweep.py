@@ -3,19 +3,16 @@
 
     python3 scripts/quorum_sweep.py [--calls 50]
 
-For each design (the staged kernel, whose blocks stage a tile in shared
-memory, and the direct one, whose threads load their groups straight
-into registers), block size (32, 64, 128, 256 threads) and groups a
-thread (1, 2, 4), through the kernel's ``ra_quorum_launch_tiled`` entry, at the main
+For each block size (32, 64, 128, 256 threads), through the kernel's
+``ra_quorum_launch_tiled`` entry, at the main
 path's G = 10240 with P = 3, 5 and 7 and at the scaling shape G =
 4,194,304, P = 3 (96.5 MB, above the 50 MB L2): the result is checked
 against the plain version bit for bit, then the card time a call is
 taken from ``torch.profiler`` over ``--calls`` calls and the time a call
 from CUDA events (median). The empty kernel at the main path's grid is
 timed the same way, for the launch floor. It prints one JSON line per
-row, tagged with the card's name and power limit; the design and tiling
-that ``ra_quorum_launch`` uses (``kDirect``, ``kThreads``,
-``kGroupsPerThread``) are chosen from these rows. Needs a CUDA card; imports no JAX.
+row, tagged with the card's name and power limit; the block size that
+``ra_quorum_launch`` uses (``kThreads``) is chosen from these rows. Needs a CUDA card; imports no JAX.
 """
 
 import argparse
@@ -32,7 +29,6 @@ import chip_smoke as cs  # noqa: E402
 from ra_tpu_torch.ops import quorum as Q  # noqa: E402
 
 THREADS = (32, 64, 128, 256)
-GPTS = (1, 2, 4)
 SHAPES = ((cs.GROUPS, 3), (cs.GROUPS, 5), (cs.GROUPS, 7), cs.SCALING)
 
 
@@ -55,32 +51,29 @@ def main() -> int:
                     for a in cs.quorum_inputs(rng, g, p))
         want = Q.agreed_commit_plain(m, v, nv)
         bound_ms = cs.quorum_bound(g, p)[0]
-        for direct, threads, gpt in ((d, t, k) for d in (0, 1)
-                                     for t in THREADS for k in GPTS):
-                out = torch.empty(g, dtype=torch.int32, device=dev)
+        for threads in THREADS:
+            out = torch.empty(g, dtype=torch.int32, device=dev)
 
-                def call():
-                    rc = fn(m.data_ptr(), v.data_ptr(), nv.data_ptr(),
-                            out.data_ptr(), g, p, threads, gpt, direct,
-                            stream)
-                    if rc != 0:
-                        raise RuntimeError(f"launch failed: CUDA error {rc}")
+            def call():
+                rc = fn(m.data_ptr(), v.data_ptr(), nv.data_ptr(),
+                        out.data_ptr(), g, p, threads, stream)
+                if rc != 0:
+                    raise RuntimeError(f"launch failed: CUDA error {rc}")
 
-                call()
-                torch.cuda.synchronize()
-                if not torch.equal(out, want):
-                    raise AssertionError(
-                        f"direct={direct}, tiling {threads} x {gpt} != plain "
-                        f"at G={g}, P={p}")
-                _, dev_us = cs.profile_kernels(torch, call, args.calls,
-                                               ("quorum_kernel",))
-                card_us = sum(dev_us.values())
-                print(json.dumps({
-                    "g": g, "p": p, "direct": direct, "threads": threads,
-                    "gpt": gpt,
-                    "blocks": -(-g // (threads * gpt)), "card_us": card_us,
-                    "ms": cs.median_ms(call), "bound_share": bound_ms * 1e3 / card_us,
-                    "device": card}), flush=True)
+            call()
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(
+                    f"{threads} threads a block != plain at G={g}, P={p}")
+            _, dev_us = cs.profile_kernels(torch, call, args.calls,
+                                           ("quorum_kernel",))
+            card_us = sum(dev_us.values())
+            print(json.dumps({
+                "g": g, "p": p, "threads": threads,
+                "blocks": -(-g // threads), "card_us": card_us,
+                "ms": cs.median_ms(call),
+                "bound_share": bound_ms * 1e3 / card_us, "device": card}),
+                flush=True)
     return 0
 
 

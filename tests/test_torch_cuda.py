@@ -14,6 +14,8 @@ file imports no JAX, so it also runs where JAX is not installed:
     python3 -m pytest tests/test_torch_cuda.py -m cuda -q --noconftest
 """
 
+import importlib.util
+import os
 import time
 
 import numpy as np
@@ -27,6 +29,16 @@ from ra_tpu_torch.ops import step as S
 import torch_step_cases as cases
 
 pytestmark = pytest.mark.cuda
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 @pytest.fixture
@@ -71,22 +83,12 @@ def test_kernel_at_every_g_matches_plain_and_counts_each_launch(dev, p):
         assert torch.equal(got, Q.agreed_commit_plain(*args)), g
 
 
-def _largest_last_rows(p):
+@pytest.mark.parametrize("p", list(range(3, 9)))
+def test_kernel_picks_below_the_last_entry(dev, p):
     """Every position 0..P-2 asked of rows whose largest entry sits last
     (nvcc 12.8 at -O3 returned that last entry for a register select
     chain over the sorted row)."""
-    rows, counts = [], []
-    for pos in range(p - 1):
-        for head in (list(range(1, p)), list(range(p - 1, 0, -1))):
-            rows.append([10 * h for h in head] + [10 * p])
-            counts.append(2 * (p - 1 - pos))
-    return (np.asarray(rows, np.int32), np.ones((len(rows), p), bool),
-            np.asarray(counts, np.int32))
-
-
-@pytest.mark.parametrize("p", list(range(3, 9)))
-def test_kernel_picks_below_the_last_entry(dev, p):
-    m, v, n = _largest_last_rows(p)
+    m, v, n = _chip_smoke().miscompile_rows(p)
     got = Q.agreed_commit(*(torch.from_numpy(a).to(dev) for a in (m, v, n)))
     want = np.sort(m, axis=1)[np.arange(len(m)), p - 1 - n // 2]
     assert (want < 10 * p).all()
@@ -111,15 +113,15 @@ def test_kernel_takes_views_at_an_offset(dev):
             assert torch.equal(Q.agreed_commit(*views).cpu(), want), (p, off)
 
 
-def test_every_tiling_matches_plain(dev):
-    """The sweep's entry (``ra_quorum_launch_tiled``) in both designs at
-    every block size and groups a thread it takes, at aligned bases and
-    at an offset; a tiling it does not take is refused with
-    cudaErrorInvalidValue before any launch."""
+def test_every_block_size_matches_plain(dev):
+    """The sweep's entry (``ra_quorum_launch_tiled``) at every block size
+    it takes, at aligned bases and with the voting mask at an offset; a
+    block size it does not take is refused with cudaErrorInvalidValue
+    before any launch."""
     fn = Q._kernel("ra_quorum_launch_tiled")
     stream = torch._C._cuda_getCurrentRawStream(dev.index or 0)
     rng = np.random.default_rng(9)
-    for p in (1, 3, 7, 8):
+    for p in (1, 3, 4, 6, 7, 8):
         for g in (65, 10237):
             m, v, n = (torch.from_numpy(a).to(dev)
                        for a in _quorum_inputs(rng, g, p))
@@ -127,17 +129,15 @@ def test_every_tiling_matches_plain(dev):
             vbuf = torch.zeros(v.numel() + 3, dtype=torch.bool, device=dev)
             v_off = vbuf[3:].view(v.shape)
             v_off.copy_(v)
-            for direct, threads, gpt, vv in (
-                    (d, t, k, x) for d in (0, 1) for t in (32, 64, 128, 256)
-                    for k in (1, 2, 4) for x in (v, v_off)):
-                out = torch.full((g,), 7, dtype=torch.int32, device=dev)
-                assert fn(m.data_ptr(), vv.data_ptr(), n.data_ptr(),
-                          out.data_ptr(), g, p, threads, gpt, direct,
-                          stream) == 0
-                assert torch.equal(out, want), (p, g, direct, threads, gpt)
-    for threads, gpt in ((48, 1), (512, 1), (64, 3)):
+            for threads in (32, 64, 96, 128, 256):
+                for vv in (v, v_off):
+                    out = torch.full((g,), 7, dtype=torch.int32, device=dev)
+                    assert fn(m.data_ptr(), vv.data_ptr(), n.data_ptr(),
+                              out.data_ptr(), g, p, threads, stream) == 0
+                    assert torch.equal(out, want), (p, g, threads)
+    for threads in (0, 48, 512):
         assert fn(m.data_ptr(), v.data_ptr(), n.data_ptr(), out.data_ptr(),
-                  g, p, threads, gpt, 0, stream) != 0
+                  g, p, threads, stream) != 0
 
 
 def test_kernel_wrapper_refuses_on_the_card(dev):

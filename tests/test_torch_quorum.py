@@ -5,15 +5,16 @@ and the scalar oracle; the kernel itself runs only on a CUDA card.
 The kernel's pick (``csrc/quorum_net.cuh``: the entry at the asked
 ascending position found by rank, no sort) is held against both JAX
 formulations as a numpy model, and the kernel's own code (``csrc/quorum.cu``
-up to its host launchers: the staging of a tile with its alignment cases
-and ragged tail, the row reads, the pick) is compiled with the host's C++
-compiler behind a small shim and run block by block, thread by thread,
-under ``-fsanitize=undefined`` (a misaligned vector access aborts). That
+up to its host launchers: the row loads, vector or element by element as
+the bases' alignment allows, the mask, the pick) is compiled with the
+host's C++ compiler behind a small shim and run thread by thread under
+``-fsanitize=undefined`` (a misaligned vector access aborts). That
 checks the kernel's arithmetic, not nvcc's code generation: the card tests
 do that.
 """
 
 import ctypes
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -32,6 +33,16 @@ from ra_tpu_torch.ops import kernels
 from ra_tpu_torch.ops import quorum as Q
 
 from torch_parity import assert_egress_equal, assert_state_equal, jax_copy, to_torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _inputs(seed, p, g=300):
@@ -152,7 +163,9 @@ def _rank_pick(match, voting, nvoters):
 
 def _edge_inputs(seed, p, g=700):
     """Seeded rows with ties (values from a small range), every member
-    voting, a single voter and no voter, and the miscompile rows."""
+    voting, a single voter and no voter, and the rows an nvcc miscompile
+    once got wrong (``chip_smoke.miscompile_rows``: the largest entry
+    last, a lower position asked)."""
     rng = np.random.default_rng(seed)
     match = rng.integers(0, 4, (g, p)).astype(np.int32)
     match[g // 2:] = rng.integers(-2**31, 2**31 - 1, (g - g // 2, p))
@@ -162,27 +175,9 @@ def _edge_inputs(seed, p, g=700):
     voting[1::5, p - 1] = True  # a single voter
     voting[2::5] = False  # no voter
     nvoters = voting.sum(axis=1).astype(np.int32)
-    mm, mv, mn = _miscompile_rows(p)
+    mm, mv, mn = _chip_smoke().miscompile_rows(p)
     return (np.concatenate([match, mm]), np.concatenate([voting, mv]),
             np.concatenate([nvoters, mn]))
-
-
-def _miscompile_rows(p):
-    """Rows whose largest entry sits last, each asking for an ascending
-    position below P - 1 (the case nvcc 12.8 got wrong for a register
-    select chain at -O3, returning the last entry): distinct values in
-    slot order and in a shuffled order, every position 0..P-2."""
-    rng = np.random.default_rng(p)
-    rows, counts = [], []
-    for pos in range(max(p - 1, 0)):
-        for order in (np.arange(p - 1), rng.permutation(p - 1)):
-            rows.append(list(10 * (order + 1)) + [10 * p])
-            counts.append(2 * (p - 1 - pos))
-    if not rows:
-        return (np.zeros((0, p), np.int32), np.zeros((0, p), bool),
-                np.zeros(0, np.int32))
-    match = np.asarray(rows, np.int32)
-    return match, np.ones_like(match, bool), np.asarray(counts, np.int32)
 
 
 @pytest.mark.parametrize("p", list(range(1, 9)))
@@ -200,7 +195,7 @@ def test_rank_pick_model_matches_sort_and_pallas(p):
     pallas = np.asarray(agreed_commit_pallas(
         jm[idx], jv[idx], jn[idx], interpret=True))
     np.testing.assert_array_equal(got[idx], pallas)
-    mm, _, mn = _miscompile_rows(p)
+    mm, _, mn = _chip_smoke().miscompile_rows(p)
     if len(mm):  # the asked position, never the last entry
         want = np.sort(mm, axis=1)[np.arange(len(mm)), p - 1 - mn // 2]
         np.testing.assert_array_equal(got[-len(mm):], want)
@@ -238,91 +233,37 @@ using std::min;
 RUNNER = r"""
 }  // namespace
 
-#include <vector>
-
-namespace {
-
-// the kernel's order by hand: every block, its staging for every thread
-// (the barrier), then its picks for every thread
-template <int P, int GPT>
-void host_run(const int32_t* match, const uint8_t* voting,
-              const int32_t* nvoters, int32_t* out, int g, int threads) {
-  const int tile = threads * GPT;
-  std::vector<int4> store(tile_bytes(tile, P) / 16 + 1);
-  unsigned char* smem = reinterpret_cast<unsigned char*>(store.data());
-  blockDim.x = threads;
-  for (int b = 0; b < grid_of(g, tile); ++b) {
-    blockIdx.x = b;
-    const int64_t base = static_cast<int64_t>(b) * tile;
-    const int64_t left = g - base;
-    const int rows = left < tile ? static_cast<int>(left) : tile;
-    const Staged st = staged_at<P>(smem, tile);
-    for (int x = 0; x < threads; ++x) {
-      threadIdx.x = x;
-      stage_tile<P, GPT>(match, voting, nvoters, base, rows, st);
-    }
-    for (int x = 0; x < threads; ++x) {
-      threadIdx.x = x;
-      pick_rows<P, GPT>(st, out, base, rows);
-    }
-  }
-}
-
-// the direct variant: every thread of every block, no barrier
-template <int P, int GPT>
-void host_run_direct(const int32_t* match, const uint8_t* voting,
-                     const int32_t* nvoters, int32_t* out, int g,
-                     int threads) {
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(match) | reinterpret_cast<uintptr_t>(voting) |
-        reinterpret_cast<uintptr_t>(nvoters) | reinterpret_cast<uintptr_t>(out)) &
-       15) == 0;
-  blockDim.x = threads;
-  for (int b = 0; b < grid_of(g, threads * GPT); ++b) {
-    blockIdx.x = b;
-    for (int x = 0; x < threads; ++x) {
-      threadIdx.x = x;
-      const int64_t first = (static_cast<int64_t>(b) * threads + x) * GPT;
-      if (first < g)
-        pick_direct<P, GPT>(match, voting, nvoters, out, first, g,
-                            aligned && first + GPT <= g);
-    }
-  }
-}
-
-template <int P>
-void host_gpt(const int32_t* m, const uint8_t* v, const int32_t* n,
-              int32_t* out, int g, int threads, int gpt, int direct) {
-  if (direct) {
-    if (gpt == 1) host_run_direct<P, 1>(m, v, n, out, g, threads);
-    if (gpt == 2) host_run_direct<P, 2>(m, v, n, out, g, threads);
-    if (gpt == 4) host_run_direct<P, 4>(m, v, n, out, g, threads);
-    return;
-  }
-  if (gpt == 1) host_run<P, 1>(m, v, n, out, g, threads);
-  if (gpt == 2) host_run<P, 2>(m, v, n, out, g, threads);
-  if (gpt == 4) host_run<P, 4>(m, v, n, out, g, threads);
-}
-
-}  // namespace
-
+// the kernel's threads in turn (it has no barrier), at `threads` a block
 extern "C" int host_launch(const void* match, const void* voting,
                            const void* nvoters, void* out, int g, int p,
-                           int threads, int gpt, int direct) {
-  if (!valid(g, p, threads, gpt)) return 1;
+                           int threads) {
+  if (!valid(g, p, threads)) return 1;
   const auto* m = static_cast<const int32_t*>(match);
   const auto* v = static_cast<const uint8_t*>(voting);
   const auto* n = static_cast<const int32_t*>(nvoters);
   auto* o = static_cast<int32_t*>(out);
-  switch (p) {
-    case 1: host_gpt<1>(m, v, n, o, g, threads, gpt, direct); break;
-    case 2: host_gpt<2>(m, v, n, o, g, threads, gpt, direct); break;
-    case 3: host_gpt<3>(m, v, n, o, g, threads, gpt, direct); break;
-    case 4: host_gpt<4>(m, v, n, o, g, threads, gpt, direct); break;
-    case 5: host_gpt<5>(m, v, n, o, g, threads, gpt, direct); break;
-    case 6: host_gpt<6>(m, v, n, o, g, threads, gpt, direct); break;
-    case 7: host_gpt<7>(m, v, n, o, g, threads, gpt, direct); break;
-    default: host_gpt<8>(m, v, n, o, g, threads, gpt, direct); break;
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(m) | reinterpret_cast<uintptr_t>(v) |
+        reinterpret_cast<uintptr_t>(n) | reinterpret_cast<uintptr_t>(o)) &
+       15) == 0;
+  blockDim.x = threads;
+  for (int b = 0; b < grid_of(g, threads); ++b) {
+    blockIdx.x = b;
+    for (int x = 0; x < threads; ++x) {
+      threadIdx.x = x;
+      const int64_t i = static_cast<int64_t>(b) * threads + x;
+      if (i >= g) continue;
+      switch (p) {
+        case 1: pick_group<1>(m, v, n, o, i, aligned); break;
+        case 2: pick_group<2>(m, v, n, o, i, aligned); break;
+        case 3: pick_group<3>(m, v, n, o, i, aligned); break;
+        case 4: pick_group<4>(m, v, n, o, i, aligned); break;
+        case 5: pick_group<5>(m, v, n, o, i, aligned); break;
+        case 6: pick_group<6>(m, v, n, o, i, aligned); break;
+        case 7: pick_group<7>(m, v, n, o, i, aligned); break;
+        default: pick_group<8>(m, v, n, o, i, aligned); break;
+      }
+    }
   }
   return 0;
 }
@@ -351,7 +292,7 @@ def host_lib(tmp_path_factory):
     dll = ctypes.CDLL(str(lib))
     vp, i = ctypes.c_void_p, ctypes.c_int
     dll.host_launch.restype = ctypes.c_int
-    dll.host_launch.argtypes = [vp, vp, vp, vp, i, i, i, i, i]
+    dll.host_launch.argtypes = [vp, vp, vp, vp, i, i, i]
     return dll
 
 
@@ -366,33 +307,30 @@ def _at_offset(a, off):
 
 # sizes around a tile of 32 and 64 rows, a large ragged one, G = 1
 KERNEL_GS = (1, 63, 64, 65, 1001, 10237)
-# (threads, groups a thread, direct): 32..256 threads, 1, 2 and 4 groups a
-# thread, the staged kernel and the direct one
-TILINGS = ((32, 1, 0), (64, 1, 0), (64, 2, 0), (128, 4, 0), (256, 1, 0),
-           (32, 1, 1), (64, 2, 1), (64, 4, 1), (256, 1, 1))
+# block sizes the kernel takes
+THREADS = (32, 128, 256)
 
 
 @pytest.mark.parametrize("p", list(range(1, 9)))
 def test_kernel_code_matches_plain(host_lib, p):
-    """At every G of ``KERNEL_GS`` and every tiling of ``TILINGS``, with
-    each input at an aligned base and at offsets that leave it 4-byte or
-    byte aligned, the kernel's code equals the plain version bit for bit,
-    the miscompile rows included."""
+    """At every G of ``KERNEL_GS`` and block size of ``THREADS``, with
+    each input at an aligned base (the vector loads) and at offsets that
+    leave it 4-byte or byte aligned (the element loads), the kernel's code
+    equals the plain version bit for bit, the miscompile rows included."""
     m, v, n = _edge_inputs(40 + p, p, g=max(KERNEL_GS))
     for g in KERNEL_GS:
         rows = slice(0, g) if g < 1001 else slice(len(m) - g, len(m))
         tm, tv, tn = (torch.from_numpy(np.ascontiguousarray(a[rows]))
                       for a in (m, v, n))
         want = Q.agreed_commit_plain(tm, tv, tn)
-        for threads, gpt, direct in TILINGS:
+        for threads in THREADS:
             for off in ((0, 0, 0), (1, 1, 1), (2, 3, 3), (3, 5, 2)):
                 ins = [_at_offset(t, o) for t, o in zip((tm, tv, tn), off)]
                 out = torch.full((g,), 7, dtype=torch.int32)
                 rc = host_lib.host_launch(*(t.data_ptr() for t in ins),
-                                          out.data_ptr(), g, p, threads, gpt,
-                                          direct)
+                                          out.data_ptr(), g, p, threads)
                 assert rc == 0
-                assert torch.equal(out, want), (g, threads, gpt, direct, off)
+                assert torch.equal(out, want), (g, threads, off)
 
 
 def test_full_step_with_kernel_backend_matches_pallas_backend():
