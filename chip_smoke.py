@@ -48,7 +48,7 @@ control) at its defaults; every state check of the bench must hold, and
 each bench's JSON line is printed. Then the operator tools run on the
 card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
 and the decision bench's loop on the step kernel is held against the
-same loop on the plain step at 10240 groups. Phase mesh last drives the
+same loop on the plain step at 10240 groups. Phase mesh then drives the
 multi-device path and the graft entry: ``graft_entry.entry()`` on the
 card (its quorum scan through ``quorum.cu``) against the same on the
 CPU; the step over four slices of the group axis on ``cuda:0`` against
@@ -59,7 +59,15 @@ groups x 3 replicas, WAL-backed, through coordinators over a four-slice
 mesh (four measured waves, as phase main), every command checked on all
 three replicas, one step-kernel launch a slice a step and no active set.
 One card makes a mesh slices of that card: this checks the path, not
-scaling.
+scaling. Phase lane last runs the hand-stepped command-lane scenarios of
+the JAX package's tests (a deposed leader's and a truncated command's
+redirect in each active-set mode, the admission reject, the pipeline
+window; ``tests/lane_cases.py``) on coordinators on the card, each
+record equal to the port's CPU record of the same interleaving, the
+active set launching the active-set kernel and ``never`` the full-width
+one; the command-lane watchdog on the card in each mode; and the native
+mailbox pack into the pinned buffers the coordinator uploads from,
+byte for byte against the Python stores.
 
 Options (the defaults are the smoke run):
 
@@ -1708,6 +1716,133 @@ def mesh_line(kx: dict, card: str) -> str:
         f"s; {main_line(r, card)}")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the command-lane scenarios on the card
+
+
+def lane_cases():
+    """The command-lane scenarios and the pack corpus shared with the CPU
+    tests (``tests/lane_cases.py``, numpy only)."""
+    tests = os.path.join(HERE, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import lane_cases as L
+
+    return L
+
+
+LANE_CAP = 8  # the pack fuzz's mailbox width, as tests/test_native_runtime.py
+
+
+def first_difference(a, b, path="record"):
+    """Where two records first differ, for the error message."""
+    if isinstance(a, dict) and isinstance(b, dict) and a.keys() == b.keys():
+        for k in a:
+            if a[k] != b[k]:
+                return first_difference(a[k], b[k], f"{path}[{k!r}]")
+    if (isinstance(a, (list, tuple)) and isinstance(b, (list, tuple))
+            and len(a) == len(b)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            if x != y:
+                return first_difference(x, y, f"{path}[{i}]")
+    return f"{path}: card {a!r}, cpu {b!r}"
+
+
+def phase_lane(torch, C, S, dev) -> dict:
+    """The deterministic command-lane scenarios of
+    ``tests/test_command_lane.py`` (both redirects in each active-set
+    mode, the admission reject, the pipeline window) on coordinators on
+    ``dev``, each record held against the port's CPU record of the same
+    interleaving, run in this process (tier-1 holds that CPU record
+    against the JAX package); ``always`` must launch the active-set
+    kernel and ``never`` the full-width one. Then the watchdog in each
+    mode on ``dev`` with the original's assertions, and the native
+    mailbox pack fuzz into the pinned buffers a coordinator on ``dev``
+    uploads from, against the Python column stores. Any difference or
+    missing launch raises."""
+    L = lane_cases()
+    card = L.Lane("ra_tpu_torch", dev)
+    cpu = L.Lane("ra_tpu_torch", "cpu")
+    runs = [(n, m) for n in L.MODED for m in L.MODES]
+    runs += [("admission_reject", "auto"), ("pipeline_window", "auto")]
+    out = {"cases": {}, "watchdog": {}}
+    S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
+    for name, mode in runs:
+        flow = L.DETERMINISTIC[name]
+        before = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+        got = flow(card, mode)
+        torch.cuda.synchronize()
+        full, sub = (S.LAUNCHES_FULL - before[0], S.LAUNCHES_SUB - before[1])
+        want = flow(cpu, mode)
+        if (S.LAUNCHES_FULL, S.LAUNCHES_SUB) != (before[0] + full,
+                                                 before[1] + sub):
+            raise AssertionError("the CPU run launched a step kernel")
+        if got != want:
+            raise AssertionError(f"phase lane, {name} ({mode}): "
+                                 f"{first_difference(got, want)}")
+        if mode == "always" and (sub == 0 or full != 0):
+            raise AssertionError(f"phase lane, {name} (always): launches "
+                                 f"full {full}, sub {sub}")
+        if mode == "never" and (full == 0 or sub != 0):
+            raise AssertionError(f"phase lane, {name} (never): launches "
+                                 f"full {full}, sub {sub}")
+        if full + sub == 0:
+            raise AssertionError(f"phase lane, {name} ({mode}): no launch")
+        out["cases"][f"{name}/{mode}"] = {"full": full, "sub": sub}
+    for mode in L.MODES:
+        before = (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+        out["watchdog"][mode] = L.watchdog(card, mode)
+        out["watchdog"][mode]["launches"] = {
+            "full": S.LAUNCHES_FULL - before[0],
+            "sub": S.LAUNCHES_SUB - before[1]}
+    out["launches"] = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                       "quorum": C.quorum.LAUNCHES}
+    # the native pack into the pinned mailbox of a coordinator on dev
+    c_nat = card.coord("lnpk0", capacity=LANE_CAP, num_peers=1,
+                       idle_sleep_s=0, native="pack")
+    c_off = card.coord("lnpk1", capacity=LANE_CAP, num_peers=1,
+                       idle_sleep_s=0, native="off")
+    try:
+        if not c_nat._nat_pack:
+            raise AssertionError("the native pack library did not load")
+        pinned = []
+
+        def buffer(rows, width):
+            buf = c_nat._dev.mbox_buffer(rows, width)
+            pinned.append(torch.from_numpy(buf).is_pinned())
+            return buf
+
+        L.pack_fuzz(card, c_nat, c_off, LANE_CAP, buffer=buffer)
+        if not all(pinned):
+            raise AssertionError("a pack buffer was not pinned")
+        nat = c_nat.counters.get("native_pack_batches")
+        if nat == 0 or c_nat.counters.get("native_fallbacks"):
+            raise AssertionError(
+                f"native pack batches {nat}, fallbacks "
+                f"{c_nat.counters.get('native_fallbacks')}")
+        out["pack"] = {"trials": L.PACK_TRIALS, "pinned": len(pinned),
+                       "native_batches": nat}
+    finally:
+        c_nat.stop()
+        c_off.stop()
+    return out
+
+
+def lane_line(kl: dict, card: str) -> str:
+    wd = "; ".join(
+        f"{m}: {r['verdict']}, lane_wedges {r['lane_wedges']}, "
+        f"lane_recoveries {r['lane_recoveries']}, launches {r['launches']}"
+        for m, r in kl["watchdog"].items())
+    return (
+        f"{len(kl['cases'])} hand-stepped scenarios on the card == the CPU "
+        f"record (launches by scenario {json.dumps(kl['cases'])}); "
+        f"watchdog {wd}; native pack into {kl['pack']['pinned']} pinned "
+        f"mailboxes == the Python stores byte for byte over "
+        f"{kl['pack']['trials']} corpora ({kl['pack']['native_batches']} "
+        f"native batches); kernel launches in the phase {kl['launches']} "
+        f"| {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
@@ -1862,6 +1997,13 @@ def main(argv=None) -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase mesh: {mesh_line(kx, card)} | {time.perf_counter() - t:.2f} s")
+
+    # phase 9: the command-lane scenarios, the watchdog and the native
+    # pack into pinned memory, on the card
+    t = time.perf_counter()
+    kl = phase_lane(torch, C, S, dev)
+    log(f"phase lane: {lane_line(kl, card)} | "
+        f"{time.perf_counter() - t:.2f} s")
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",
@@ -1871,7 +2013,8 @@ def main(argv=None) -> int:
         return {"main": km["launches"][kind], "api": ka["launches"][kind],
                 "harness": kh["launches"][kind],
                 "bench": bench_launches(kb, kind),
-                "mesh": kx["launches"]["phase"][kind]}
+                "mesh": kx["launches"]["phase"][kind],
+                "lane": kl["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",

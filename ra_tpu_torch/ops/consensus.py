@@ -47,6 +47,7 @@ Port notes:
 
 from __future__ import annotations
 
+import threading
 from typing import Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -290,13 +291,6 @@ def _wrap(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.where(idx < 0, idx + n, idx)
 
 
-def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``arr[idx]`` along axis 0 with JAX's gather semantics: negative
-    ids wrap, out-of-range ids clamp."""
-    n = arr.shape[0]
-    return arr[_wrap(idx, n).clamp(0, n - 1)]
-
-
 def _get_fill(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     """``arr.at[idx].get(mode="fill", fill_value=fill)`` along axis 0."""
     n = arr.shape[0]
@@ -308,26 +302,43 @@ def _get_fill(arr: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     return torch.where(ok, got, fill)
 
 
+def _drop_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``idx`` as int64 with negatives wrapped once and every id still
+    out of range routed to row ``n``, the scratch row of a drop buffer
+    (``mode="drop"``)."""
+    i = _wrap(idx, n)
+    return torch.where((i >= 0) & (i < n), i, n)
+
+
+def _with_scratch_row(arr: torch.Tensor) -> torch.Tensor:
+    """A copy of ``arr`` with one scratch row appended."""
+    n = arr.shape[0]
+    buf = arr.new_empty((n + 1,) + tuple(arr.shape[1:]))
+    buf[:n] = arr
+    return buf
+
+
 def _drop_buffer(arr: torch.Tensor, idx: torch.Tensor):
     """A copy of ``arr`` with one scratch row appended, and ``idx`` with
     every out-of-range id routed to that row (``mode="drop"``)."""
+    return _with_scratch_row(arr), _drop_index(idx, arr.shape[0])
+
+
+def _set_rows(arr: torch.Tensor, i: torch.Tensor, vals) -> torch.Tensor:
+    """``scatter_set`` with the ids already through ``_drop_index``."""
     n = arr.shape[0]
-    i = _wrap(idx, n)
-    i = torch.where((i >= 0) & (i < n), i, n)
-    buf = arr.new_empty((n + 1,) + tuple(arr.shape[1:]))
-    buf[:n] = arr
-    return buf, i
+    buf = _with_scratch_row(arr)
+    if not torch.is_tensor(vals):
+        vals = torch.full(tuple(i.shape) + tuple(arr.shape[1:]), vals,
+                          dtype=arr.dtype, device=arr.device)
+    buf.index_put_((i,), vals.to(arr.dtype))
+    return buf[:n]
 
 
 def scatter_set(arr: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """``arr.at[idx].set(vals, mode="drop")`` along axis 0 (ids must be
     unique among the in-range rows, as in JAX)."""
-    buf, i = _drop_buffer(arr, idx)
-    if not torch.is_tensor(vals):
-        vals = torch.full(tuple(i.shape) + tuple(arr.shape[1:]), vals,
-                          dtype=arr.dtype, device=arr.device)
-    buf.index_put_((i,), vals.to(arr.dtype))
-    return buf[: arr.shape[0]]
+    return _set_rows(arr, _drop_index(idx, arr.shape[0]), vals)
 
 
 def scatter_max(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -710,10 +721,16 @@ def consensus_step_packed_sub(
     fused step over the compact sub-batch, scatter results back. Pad
     rows gather a clamped row's state but their writes are dropped on
     the scatter, so they cannot perturb any real group."""
-    sub = GroupState(*(_take(a, gidx) for a in state))
+    # the gather and scatter ids are the same for every field: convert
+    # them once (the plain step's cost on the CPU is its op count). JAX's
+    # gather wraps negative ids and clamps out-of-range ones.
+    G = state.role.shape[0]
+    take = _wrap(gidx, G).clamp(0, G - 1)
+    sub = GroupState(*(a[take] for a in state))
     sub_new, eg = consensus_step_impl(sub, _unpack_mailbox(packed))
+    put = _drop_index(gidx, G)
     new_state = GroupState(
-        *(scatter_set(full, gidx, s) for full, s in zip(state, sub_new))
+        *(_set_rows(full, put, s) for full, s in zip(state, sub_new))
     )
     return new_state, _pack_egress(eg)
 
@@ -739,21 +756,26 @@ def _apply_packed_scatters(state: GroupState, packed: torch.Tensor) -> GroupStat
     his = packed[base + 2]
     terms = packed[base + 3]
     k = state.term_suffix.shape[-1]
+    G = state.last_index.shape[0]
+    # the ids address every [G] field alike: convert them once
+    put = _drop_index(gids, G)
+    ok = put < G
+    at = put.clamp(0, G - 1)
     los_c = torch.maximum(los, his - (k - 1))
     slots = _arange(k, his)[None, :]
     # largest index i <= hi with i % k == slot
     idx_at_slot = his[:, None] - ((his[:, None] - slots) % k)
     mask = idx_at_slot >= los_c[:, None]
-    cur = _get_fill(state.term_suffix, gids, 0)
+    cur = torch.where(ok[:, None], state.term_suffix[at], 0)
     rows = torch.where(mask, terms[:, None], cur)
-    ts = scatter_set(state.term_suffix, gids, rows)
-    old_last = _get_fill(state.last_index, gids, 0)
+    ts = _set_rows(state.term_suffix, put, rows)
+    old_last = torch.where(ok, state.last_index[at], 0)
     new_last = torch.maximum(old_last, his)
-    last_index = scatter_set(state.last_index, gids, new_last)
+    last_index = _set_rows(state.last_index, put, new_last)
     ring_at_tail = _at_col(rows, new_last % k)
-    last_term = scatter_set(state.last_term, gids, ring_at_tail)
-    unknown_lo = scatter_set(state.unknown_lo, gids, 1)
-    unknown_hi = scatter_set(state.unknown_hi, gids, 0)
+    last_term = _set_rows(state.last_term, put, ring_at_tail)
+    unknown_lo = _set_rows(state.unknown_lo, put, 1)
+    unknown_hi = _set_rows(state.unknown_hi, put, 0)
     return state._replace(
         term_suffix=ts,
         last_index=last_index,
@@ -785,15 +807,29 @@ def consensus_step_packed_sub_scat_plain(
     return consensus_step_packed_sub(state, packed, gidx)
 
 
+# The plain step on CPU tensors is some hundreds of small torch ops, and
+# each releases the interpreter lock. Coordinators stepping at once in
+# one process then hand that lock back and forth on every op: at capacity
+# 8 an active-set step of about 2 ms alone took about 30 ms with three
+# threads stepping (scripts/cpu_step_threads.py), too slow for a pre-vote
+# round to finish between elections 80 ms apart, where the JAX package's
+# step (one compiled call) finishes it. The CPU route takes this lock for
+# the whole step, so steps of one process run one after another at their
+# single-thread speed.
+_CPU_STEP_LOCK = threading.Lock()
+
+
 def consensus_step_packed_scat(state: GroupState, packed: torch.Tensor):
     """The full-width main-path step: the packed scatters, then the step
-    over every group. CPU tensors run the plain version; CUDA tensors
-    launch the step kernel (or raise)."""
+    over every group. CPU tensors run the plain version (under
+    ``_CPU_STEP_LOCK``); CUDA tensors launch the step kernel (or
+    raise)."""
     from ra_tpu_torch.ops import step  # it reads this module's layouts
 
     step.check(state, packed)
     if packed.device.type == "cpu":
-        return consensus_step_packed_scat_plain(state, packed)
+        with _CPU_STEP_LOCK:
+            return consensus_step_packed_scat_plain(state, packed)
     return step.launch_full(state, packed)
 
 
@@ -808,7 +844,8 @@ def consensus_step_packed_sub_scat(
 
     step.check(state, packed, gidx)
     if packed.device.type == "cpu":
-        return consensus_step_packed_sub_scat_plain(state, packed, gidx)
+        with _CPU_STEP_LOCK:
+            return consensus_step_packed_sub_scat_plain(state, packed, gidx)
     return step.launch_sub(state, packed, gidx)
 
 

@@ -5,13 +5,20 @@ Each case runs with ``ra_tpu``'s ``BatchCoordinator``s and again with
 ``ra_tpu_torch``'s on ``device="cpu"`` (``torch_batch.on_both``): the
 stepping drivers with and without ingress rings, an fsync failure and a
 torn WAL write injected during the pipelined handoff, an election storm
-wider than an ingress lane, and the egress sender thread. Cooperatively
+wider than an ingress lane, and the egress sender thread. Since PR 9
+also four full-lane cases of ``test_command_plane.py`` (a client command
+rejected with a gate, lossy traffic shed, a peer batch shedding only its
+lossy subset, a drainer's own publish diverted) and two single-member
+cases of ``test_pipeline.py`` (a stale election trigger dropped, a rare
+message processed once), each hand-stepped on one coordinator: their
+replies, counters and states must be equal. Cooperatively
 stepped clusters must end in equal device state, field for field; the
 started clusters under injected faults in equal machine states and
 member tables (which member leads after a fault, and how many noops the
 churn appended, are races there).
 """
 
+import threading
 import time
 
 import pytest
@@ -269,3 +276,163 @@ def test_election_storm_wider_than_lane_fully_elects(tmp_path):
 def test_egress_sender_thread_ships_the_fanout(tmp_path):
     out = on_both(egress_sender, tmp_path)
     assert out["replies"] == list(range(1, 11)) and out["sender_used"]
+
+
+# -- single-coordinator cases, hand-stepped -------------------------------------
+
+
+def single(pkg, name, slots=None, **kw):
+    """An unstarted one-member coordinator hosting group ``<name>g``."""
+    if slots is not None:
+        kw["ingress_ring_slots"] = slots
+    c = pkg.coord(name, capacity=4, num_peers=1, idle_sleep_s=0,
+                  nodes=pkg.transport.NodeRegistry(), **kw)
+    sid = (f"{name}g", name)
+    c.add_group(sid[0], f"{name}cl", [sid], pkg.adder())
+    return c, sid
+
+
+def elect_single(pkg, c, sid):
+    c.deliver(sid, pkg.election(), None)
+    for _ in range(50):
+        c.step_once()
+        if c.by_name[sid[0]].role == pkg.C.R_LEADER:
+            return
+    raise AssertionError("no leader")
+
+
+def fill_lane(pkg, c, sid, n=8):
+    for _ in range(n):
+        assert c.deliver(sid, pkg.command(1, reply_mode="noreply"), None)
+
+
+def full_ring_rejects(pkg, tmp):
+    """test_full_ring_rejects_client_command_with_gate."""
+    c, sid = single(pkg, "fr0", slots=8)
+    try:
+        elect_single(pkg, c, sid)
+        base = c.counters.get("commands_rejected")
+        fill_lane(pkg, c, sid)
+        fut = pkg.api.Future()
+        assert c.deliver(sid, pkg.command(1, fut), None)  # rejected, not lost
+        assert fut.done() and fut.value[:2] == ("reject", "overloaded")
+        gate = fut.value[2]
+        assert isinstance(gate, threading.Event) and not gate.is_set()
+        rejected = c.counters.get("commands_rejected") - base
+        full = c.counters.get("ingress_ring_full")
+        c.step_once()
+        woken = gate.is_set()
+        for _ in range(20):
+            c.step_once()
+        assert woken and rejected == 1 and full >= 1
+        assert c.by_name[sid[0]].machine_state == 8
+        return {"reply": fut.value[:2], "rejected": rejected, "full": full,
+                "state": c.by_name[sid[0]].machine_state}
+    finally:
+        c.stop()
+
+
+def full_ring_sheds_lossy(pkg, tmp):
+    """test_full_ring_drops_lossy_protocol_traffic_counted."""
+    c, sid = single(pkg, "lp0", slots=8)
+    try:
+        fill_lane(pkg, c, sid)
+        base = c.counters.get("ingress_ring_full")
+        ok = c.deliver(sid, pkg.protocol.HeartbeatReply(term=1, query_index=0),
+                       (sid[0], "peer"))
+        assert ok is False
+        assert c.counters.get("ingress_ring_full") == base + 1
+        return {"delivered": ok, "full": c.counters.get("ingress_ring_full")}
+    finally:
+        c.stop()
+
+
+def full_lane_peer_batch(pkg, tmp):
+    """test_full_lane_peer_batch_sheds_only_lossy_subset."""
+    c, sid = single(pkg, "ob0", slots=8)
+    try:
+        elect_single(pkg, c, sid)
+        fill_lane(pkg, c, sid)
+        shed = c.ingest_batch([
+            (sid[0], (sid[0], "peer"),
+             pkg.protocol.HeartbeatReply(term=1, query_index=0)),
+            (sid[0], None, pkg.command(1, reply_mode="noreply")),
+        ])
+        overflow = c.counters.get("ingress_overflow_msgs")
+        assert shed == 1 and overflow == 1  # only the heartbeat sheds
+        for _ in range(20):
+            c.step_once()
+        assert c.by_name[sid[0]].machine_state == 9
+        assert len(c._overflow_q) == 0
+        return {"shed": shed, "overflow": overflow,
+                "state": c.by_name[sid[0]].machine_state}
+    finally:
+        c.stop()
+
+
+def drainer_self_publish(pkg, tmp):
+    """test_drainer_self_publish_diverts_to_internal_queue."""
+    c, sid = single(pkg, "dq0", slots=8)
+    try:
+        elect_single(pkg, c, sid)
+        fill_lane(pkg, c, sid)
+        ident = threading.get_ident()
+        c._drainer_idents.add(ident)
+        try:
+            item = (c._R_CMD, sid[0], pkg.protocol.Command(
+                kind=pkg.protocol.USR, data=1, internal=True))
+            assert c._publish_blocking(item)  # returns at once
+            assert list(c._internal_q) == [item]
+        finally:
+            c._drainer_idents.discard(ident)
+        for _ in range(20):
+            c.step_once()
+        assert c.by_name[sid[0]].machine_state == 9  # 8 ring + 1 internal
+        return {"state": c.by_name[sid[0]].machine_state}
+    finally:
+        c.stop()
+
+
+def stale_election_dropped(pkg, tmp):
+    """test_stale_election_timeout_is_dropped: a trigger armed before
+    the group's last contact is ignored; an unstamped one acts."""
+    c, sid = single(pkg, "se0", detector_poll_s=10.0,
+                    election_timeout_s=100.0)
+    try:
+        g = c.by_name[sid[0]]
+        c.deliver(sid, pkg.protocol.ElectionTimeout(
+            armed_at=g.last_contact - 1.0), None)
+        for _ in range(20):
+            if not c.step_once():
+                break
+        assert g.role == pkg.C.R_FOLLOWER and g.term == 0
+        after_stale = (g.role, g.term)
+        elect_single(pkg, c, sid)
+        return {"after_stale": after_stale, "elected": (g.role, g.term)}
+    finally:
+        c.stop()
+
+
+def rare_once(pkg, tmp):
+    """test_rare_messages_processed_exactly_once: one ElectionTimeout
+    runs one election."""
+    c, sid = single(pkg, "ro0")
+    try:
+        g = c.by_name[sid[0]]
+        c.deliver(sid, pkg.election(), None)
+        c.step_once()
+        assert not c._pending_rare, "dispatching pass left its rares parked"
+        for _ in range(10):
+            c.step_once()
+        assert g.role == pkg.C.R_LEADER
+        assert g.term == 1, f"one timeout ran {g.term} elections"
+        return {"role": g.role, "term": g.term}
+    finally:
+        c.stop()
+
+
+@pytest.mark.parametrize("flow", [full_ring_rejects, full_ring_sheds_lossy,
+                                  full_lane_peer_batch, drainer_self_publish,
+                                  stale_election_dropped, rare_once])
+def test_single_coordinator_case_on_both_packages(tmp_path, flow):
+    on_both(flow, tmp_path)

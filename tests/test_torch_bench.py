@@ -15,14 +15,25 @@ root-level ``bench.py``, on the CPU.
 3. Reads: ``bench_reads`` at 8 groups x 3 rounds on both packages.
 4. Every bench function raises without CUDA when no device is given.
 
-The JAX side runs once per module (a module-scoped fixture) with the
+The JAX side runs once per module, one module-scoped fixture for each
+reference bench (decisions, pipeline, reads), so a reference run can
+fail only the tests that use its result. The benches run with the
 reference's native host library kept out (``native="off"``, and its
 loader reporting nothing built), so these tests start no g++ build of
-``ra_tpu/native``.
+``ra_tpu/native``. The reference pipeline bench keeps a known race (a
+re-election noop can lift the applied floor its waves end on), which
+exits it with its own message; the fixture retries that exit, and only
+that one, a bounded number of times. The port's benches never retry.
 """
 
+import contextlib
 import importlib.util
+import io
 import os
+import re
+import sys
+import warnings
+from typing import Optional
 
 import numpy as np
 import pytest
@@ -83,30 +94,85 @@ def _jax_decisions(groups, steps):
 
 
 @pytest.fixture(scope="module")
-def jax_runs():
-    """One run of each reference bench, native host paths off."""
+def ref_native_off():
+    """The reference bench module with its native host paths off: the
+    WAL asks ``available()``, a coordinator ``entry_points()`` (so
+    ``bench_reads``, which takes no ``native=`` argument, runs without
+    them too)."""
     import ra_tpu.native
 
-    ref = _ref_bench()
     with pytest.MonkeyPatch.context() as mp:
-        # the WAL asks available(), a coordinator entry_points() (so
-        # bench_reads, which takes no native= argument, runs without too)
         mp.setattr(ra_tpu.native, "available", lambda: False)
         mp.setattr(ra_tpu.native, "entry_points",
                    lambda: dict.fromkeys(("wal", "pack", "classify",
                                           "egress"), False))
-        return {
-            "decisions": _jax_decisions(G_DEC, T_DEC),
-            "pipeline": ref.bench_pipeline(G_PIPE, CMDS, native="off"),
-            "reads": ref.bench_reads(G_READS, ROUNDS),
-        }
+        yield _ref_bench()
+
+
+# The reference pipeline bench's known race: its cooperative modes end a
+# wave on the applied-index floor, which a re-election noop can lift, so a
+# latency wave's commands land in a measured pass and the groups they hit
+# are found ahead of the expected count, none behind. It exits the bench
+# (SystemExit(1) on the CPU) with this message. The port's copy waits on
+# the machine mirrors.
+RACE = re.compile(r"bench error: \d+/\d+ groups wrong state \(expected "
+                  r"\+(\d+); advance min=(\d+) max=(\d+)\)")
+REF_PIPELINE_TRIES = 5
+
+
+def race_in(err: str) -> Optional[str]:
+    """The race's message in a run's stderr: the wrong groups advanced
+    past the expected count, and no group fell short of it. None for any
+    other failure."""
+    m = RACE.search(err)
+    if m is None:
+        return None
+    want, lo, hi = map(int, m.groups())
+    return m[0] if want <= lo and want < hi else None
+
+
+@pytest.fixture(scope="module")
+def jax_pipeline(ref_native_off):
+    """One completed run of the reference pipeline bench. A run that
+    exits with the race's own message is retried, up to
+    ``REF_PIPELINE_TRIES`` runs in all, and each retry is reported as a
+    warning; any other exit fails."""
+    for _ in range(REF_PIPELINE_TRIES):
+        err = io.StringIO()
+        try:
+            with contextlib.redirect_stderr(err):
+                return ref_native_off.bench_pipeline(G_PIPE, CMDS,
+                                                     native="off")
+        except SystemExit:
+            race = race_in(err.getvalue())
+            if race is None:
+                raise AssertionError(
+                    f"reference bench_pipeline failed: {err.getvalue()}")
+            warnings.warn(f"reference bench_pipeline retried after its "
+                          f"applied-floor race: {race}")
+        finally:
+            sys.stderr.write(err.getvalue())
+    raise AssertionError(f"reference bench_pipeline hit its race in "
+                         f"{REF_PIPELINE_TRIES} runs of {REF_PIPELINE_TRIES}")
+
+
+@pytest.fixture(scope="module")
+def jax_decisions():
+    """The reference's decision scan."""
+    return _jax_decisions(G_DEC, T_DEC)
+
+
+@pytest.fixture(scope="module")
+def jax_reads(ref_native_off):
+    """One run of the reference read bench."""
+    return ref_native_off.bench_reads(G_READS, ROUNDS)
 
 
 # -- 1. decisions -------------------------------------------------------------
 
 
-def test_decision_loop_equals_the_jax_scan(jax_runs):
-    want_state, want_sums = jax_runs["decisions"]
+def test_decision_loop_equals_the_jax_scan(jax_decisions):
+    want_state, want_sums = jax_decisions
     st, sums = port_bench.decisions_loop(G_DEC, T_DEC, device="cpu")
     got = PC.state_to_numpy(st)
     assert set(got) == set(want_state)
@@ -131,11 +197,11 @@ def test_decision_mailbox_packs_the_reference_mailbox():
         assert (packed[i] == want.get(name, 0)).all(), name
 
 
-def test_bench_decisions_reports_the_loop(jax_runs):
+def test_bench_decisions_reports_the_loop(jax_decisions):
     out = port_bench.bench_decisions(G_DEC, T_DEC, device="cpu")
     assert out["unit"] == "decisions/sec" and out["value"] > 0
     assert out["groups"] == G_DEC and out["steps"] == T_DEC
-    assert out["success_total"] == int(jax_runs["decisions"][1].sum())
+    assert out["success_total"] == int(jax_decisions[1].sum())
     assert out["device"] == {"name": "cpu", "power_limit": None}
     assert "device cpu" in out["metric"]
     assert out["card_us_per_step"] is None
@@ -155,10 +221,11 @@ def test_bench_decisions_reports_the_loop(jax_runs):
     dict(pipeline="threaded"),
     dict(pipeline="on", wal=False),
 ])
-def test_bench_pipeline_matches_the_reference_shape(jax_runs, mode, tmp_path):
+def test_bench_pipeline_matches_the_reference_shape(jax_pipeline, mode,
+                                                   tmp_path):
     out = port_bench.bench_pipeline(G_PIPE, CMDS, device="cpu",
                                     workdir=str(tmp_path), **mode)
-    ref = jax_runs["pipeline"]
+    ref = jax_pipeline
     assert set(out) == set(ref) | PIPELINE_ADDED
     # three verified passes (a wrong state exits the bench), a rate,
     # latency from every phase
@@ -181,9 +248,9 @@ def test_bench_pipeline_matches_the_reference_shape(jax_runs, mode, tmp_path):
 # -- 3. reads -----------------------------------------------------------------
 
 
-def test_bench_reads_matches_the_reference(jax_runs):
+def test_bench_reads_matches_the_reference(jax_reads):
     out = port_bench.bench_reads(G_READS, ROUNDS, device="cpu")
-    ref = jax_runs["reads"]
+    ref = jax_reads
     assert set(out) == set(ref) | READS_ADDED
     for arm in ("lease_on", "lease_off"):
         assert set(out[arm]) == set(ref[arm])

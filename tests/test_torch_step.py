@@ -13,6 +13,7 @@ the Python lists. The kernels themselves run in ``test_torch_cuda.py``.
 
 import os
 import re
+import sys
 
 import numpy as np
 import pytest
@@ -139,6 +140,52 @@ def test_cpu_tensors_take_the_plain_step_and_launch_nothing():
     assert (S.LAUNCHES_FULL, S.LAUNCHES_SUB) == counts
     with pytest.raises(ValueError, match="CUDA"):
         S.launch_full(st, torch.from_numpy(full))
+
+
+@pytest.mark.parametrize("kind", ["full", "sub"])
+def test_cpu_steps_of_several_threads_run_one_at_a_time(monkeypatch, kind):
+    """The CPU route runs the plain step under one process-wide lock, so
+    coordinators stepping in several threads of one process never
+    interleave their steps' ops (ROADMAP Queue 3 item 2: unserialized,
+    a step's hundreds of small ops each released the interpreter lock
+    and three stepping threads ran each step over ten times slower)."""
+    import threading
+
+    fields, full, gidx, sub = _inputs(5, 3, 8, False)
+    st = T.state_from_numpy(fields, "cpu")
+    name = f"consensus_step_packed{'_sub' if kind == 'sub' else ''}_scat"
+    plain = getattr(T, f"{name}_plain")
+    inside, most = [0], [0]
+    count = threading.Lock()
+
+    def watched(*args):
+        with count:
+            inside[0] += 1
+            most[0] = max(most[0], inside[0])
+        try:
+            return plain(*args)
+        finally:
+            with count:
+                inside[0] -= 1
+
+    monkeypatch.setattr(T, f"{name}_plain", watched)
+    args = ((torch.from_numpy(full),) if kind == "full"
+            else (torch.from_numpy(sub), torch.from_numpy(gidx)))
+    step = getattr(T, name)
+    threads = [threading.Thread(target=lambda: [step(st, *args)
+                                                for _ in range(10)])
+               for _ in range(3)]
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert most[0] == 1
 
 
 def _malformed(name):
