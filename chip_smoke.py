@@ -59,7 +59,7 @@ groups x 3 replicas, WAL-backed, through coordinators over a four-slice
 mesh (four measured waves, as phase main), every command checked on all
 three replicas, one step-kernel launch a slice a step and no active set.
 One card makes a mesh slices of that card: this checks the path, not
-scaling. Phase lane last runs the hand-stepped command-lane scenarios of
+scaling. Phase lane then runs the hand-stepped command-lane scenarios of
 the JAX package's tests (a deposed leader's and a truncated command's
 redirect in each active-set mode, the admission reject, the pipeline
 window; ``tests/lane_cases.py``) on coordinators on the card, each
@@ -67,7 +67,18 @@ record equal to the port's CPU record of the same interleaving, the
 active set launching the active-set kernel and ``never`` the full-width
 one; the command-lane watchdog on the card in each mode; and the native
 mailbox pack into the pinned buffers the coordinator uploads from,
-byte for byte against the Python stores.
+byte for byte against the Python stores. Phase loop last runs the
+started wave loops (step, egress and sender threads;
+``tests/loop_cases.py``) on the card: the JAX package's auto-mode flip
+soak, idle parking and threaded pipeline at their own shapes, then the
+flip soak at 10240 groups x 3 replicas, WAL-backed, pipelined, five
+bursts of one command per group across the active set's threshold both
+ways (33,792 replies, all three replicas checked), and an idle
+coordinator of 10240 single-replica groups parked for a second: no
+wakeup, no launch, under 10 ms of its loop threads' CPU. Every step
+there is one step-kernel launch (both entry points in the flip soaks),
+no step reaches the plain torch-op step, and ``quorum.cu`` never
+launches.
 
 Options (the defaults are the smoke run):
 
@@ -1843,6 +1854,178 @@ def lane_line(kl: dict, card: str) -> str:
         f"| {card}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the started wave loops on the card
+
+
+def loop_cases():
+    """The started-loop scenarios shared with the CPU tests
+    (``tests/loop_cases.py``, standard library only)."""
+    lane_cases()  # puts tests/ on the path
+    import loop_cases as LC
+
+    return LC
+
+
+# the flip soak at full width: one command per group a burst, hot sets
+# across the active set's threshold (capacity / 4 = 2560) both ways
+LOOP_FLIP_BURSTS = (range(GROUPS), range(1024), range(GROUPS),
+                    range(4096, 6144), range(GROUPS))
+LOOP_IDLE_CPU_S = 0.010  # step + egress + sender thread CPU, idle second
+LOOP_REPLY_TIMEOUT_S = 120.0  # a reply at full width, as phase api's
+LOOP_SETTLE_TIMEOUT_S = 600.0  # elections and applies at full width
+
+
+def phase_loop(torch, C, S, dev, workdir: str) -> dict:
+    """The started wave loops (step thread, egress thread, sender
+    thread) on ``dev``: (a) the three scenarios of ``tests/loop_cases.py``
+    at the originals' shapes, (b) the auto-mode flip soak at full width,
+    3 started coordinators of 10240 groups x 3 replicas, WAL-backed,
+    pipelined, with phase api's election timeout, and (c) idle parking
+    at full width, one coordinator of 10240 single-replica groups. Each
+    scenario makes the original's assertions; here also every step is
+    one step-kernel launch (launches equal to the coordinators'
+    ``steps - sub_steps`` and ``sub_steps``), the flip soaks launch both
+    entry points, an idle second launches nothing and costs the loop's
+    threads under ``LOOP_IDLE_CPU_S`` of CPU, no step reaches the plain
+    torch-op step, and ``quorum.cu`` never launches."""
+    from ra_tpu_torch import bench
+
+    LC = loop_cases()
+    card = lane_cases().Lane("ra_tpu_torch", dev)
+    plain = {"full": C.consensus_step_packed_scat_plain,
+             "sub": C.consensus_step_packed_sub_scat_plain}
+    plain_calls = {"full": 0, "sub": 0}
+
+    def counted(kind):
+        def call(*args):
+            plain_calls[kind] += 1
+            return plain[kind](*args)
+        return call
+
+    def launches():
+        return (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+
+    def run(label, flow, **kw):
+        card.leaderboard.clear()
+        before = launches()
+        q0 = C.quorum.LAUNCHES
+        rec = flow(card, **kw)
+        torch.cuda.synchronize()
+        full, sub = (a - b for a, b in zip(launches(), before))
+        want = (sum(rec["steps"]) - sum(rec["sub_steps"]),
+                sum(rec["sub_steps"]))
+        if (full, sub) != want:
+            raise AssertionError(
+                f"phase loop, {label}: launches full {full}, sub {sub} != "
+                f"steps {want[0]} full, {want[1]} sub")
+        if C.quorum.LAUNCHES != q0:
+            raise AssertionError(f"phase loop, {label}: quorum.cu launched")
+        if label.startswith("flip_soak") and not (full and sub):
+            raise AssertionError(
+                f"phase loop, {label}: launches full {full}, sub {sub}: "
+                f"both step paths must run")
+        idle = rec.get("idle_probes")
+        if idle is not None and idle[0] != idle[1]:
+            raise AssertionError(
+                f"phase loop, {label}: launches in the idle second {idle}")
+        rec["launches"] = {"full": full, "sub": sub}
+        return rec
+
+    storage = []
+
+    def wal_logs(coords, names):
+        open_storage(coords, names, workdir, storage)
+        return bench.wal_logs(storage, GROUPS)
+
+    out = {}
+    S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
+    C.consensus_step_packed_scat_plain = counted("full")
+    C.consensus_step_packed_sub_scat_plain = counted("sub")
+    try:
+        # (a) the originals' shapes
+        for name in sorted(LC.SCENARIOS):
+            kw = {} if name == "threaded_pipeline" else {"probe": launches}
+            out[name] = run(name, LC.SCENARIOS[name], **kw)
+        # (b) the flip soak at full width
+        try:
+            out["flip_soak_full"] = run(
+                "flip_soak_full", LC.flip_soak, prefix="fsw",
+                groups=GROUPS, capacity=GROUPS, per_burst=1,
+                bursts=LOOP_FLIP_BURSTS,
+                election_timeout_s=API_ELECTION_TIMEOUT_S,
+                detector_poll_s=0.1, logs=wal_logs, probe=launches,
+                bulk=True,
+                reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
+                settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
+        finally:
+            for _tables, w, _d in storage:
+                w.close()
+                w.segment_writer.close()
+        rec = out["flip_soak_full"]
+        if rec["leader_counters"]["pipeline_overlap_ns"] <= 0:
+            raise AssertionError("phase loop, flip soak at full width: no "
+                                 "pipeline overlap on the leader")
+        # (c) idle parking at full width
+        rec = out["idle_parking_full"] = run(
+            "idle_parking_full", LC.idle_parking, prefix="zwfull",
+            groups=GROUPS, capacity=GROUPS, cmds=1, probe=launches,
+            reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
+            settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
+        for unit, cpu in (("s", sum(rec["idle_cpu_s"].values())),
+                          ("ns", sum(rec["idle_cpu_ns"].values()) / 1e9)):
+            if cpu >= LOOP_IDLE_CPU_S:
+                raise AssertionError(
+                    f"phase loop, idle second at full width: loop threads "
+                    f"took {cpu} s of CPU ({unit} clock)")
+    finally:
+        C.consensus_step_packed_scat_plain = plain["full"]
+        C.consensus_step_packed_sub_scat_plain = plain["sub"]
+    if any(plain_calls.values()):
+        raise AssertionError(f"phase loop: the plain step ran {plain_calls}")
+    out["launches"] = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                       "quorum": C.quorum.LAUNCHES}
+    return out
+
+
+def loop_line(kp: dict, card: str) -> str:
+    fw, idle = kp["flip_soak_full"], kp["idle_parking_full"]
+    probes = fw["probes"]
+    per_burst = [
+        {"groups": b["groups"], "full": p1[0] - p0[0], "sub": p1[1] - p0[1],
+         "s": round(b["s"], 3)}
+        for b, p0, p1 in zip(fw["bursts"], probes, probes[1:])]
+    burst_s = sum(b["s"] for b in fw["bursts"])
+    lc = fw["leader_counters"]
+    small = "; ".join(
+        f"{n}: launches {kp[n]['launches']}, steps {kp[n]['steps']} (sub "
+        f"{kp[n]['sub_steps']}), {kp[n]['wall_s']:.2f} s"
+        for n in ("flip_soak", "idle_parking", "threaded_pipeline"))
+    return (
+        f"(a) the originals' shapes through step.cu, the originals' "
+        f"assertions held: {small}; threaded overlap ns by coordinator "
+        f"{kp['threaded_pipeline']['counters']['pipeline_overlap_ns']}; "
+        f"(b) flip soak at {GROUPS} groups x 3 replicas, WAL-backed, "
+        f"pipelined, auto: election {fw['election_s']:.3f} s, "
+        f"{sum(b['cmds'] for b in fw['bursts'])} replies ok, all 3 replicas "
+        f"at the totals; launches by burst {json.dumps(per_burst)}; "
+        f"launches {fw['launches']} == steps {fw['steps']} (sub "
+        f"{fw['sub_steps']}); leader pipeline_steps {lc['pipeline_steps']}, "
+        f"pipeline_overlap_ns {lc['pipeline_overlap_ns']} = "
+        f"{lc['pipeline_overlap_ns'] / 1e9 / burst_s:.6f} of the bursts' "
+        f"{burst_s:.3f} s; {fw['wall_s']:.2f} s; (c) idle at {GROUPS} "
+        f"single-replica groups: wakeups {idle['wakeups']} unchanged over "
+        f"the idle second, spurious {idle['spurious']}, launches in it "
+        f"{idle['idle_probes'][1][0] - idle['idle_probes'][0][0]} full "
+        f"{idle['idle_probes'][1][1] - idle['idle_probes'][0][1]} sub; loop "
+        f"thread CPU /proc ticks {idle['idle_cpu_s']} s, thread clocks "
+        f"{idle['idle_cpu_ns']} ns, detector {idle['detector_cpu_ns']} ns; "
+        f"a fresh command woke it ({idle['woken_wakeups']} wakeups); "
+        f"launches {idle['launches']} == steps {idle['steps']} (sub "
+        f"{idle['sub_steps']}); {idle['wall_s']:.2f} s; plain step calls 0; "
+        f"kernel launches in the phase {kp['launches']} | {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
@@ -2004,6 +2187,17 @@ def main(argv=None) -> int:
     kl = phase_lane(torch, C, S, dev)
     log(f"phase lane: {lane_line(kl, card)} | "
         f"{time.perf_counter() - t:.2f} s")
+
+    # phase 10: the started wave loops (auto-mode flips, idle parking,
+    # the threaded pipeline) through the step kernels
+    t = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ra_smoke_loop_")
+    try:
+        kp = phase_loop(torch, C, S, dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    log(f"phase loop: {loop_line(kp, card)} | "
+        f"{time.perf_counter() - t:.2f} s")
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",
@@ -2014,7 +2208,8 @@ def main(argv=None) -> int:
                 "harness": kh["launches"][kind],
                 "bench": bench_launches(kb, kind),
                 "mesh": kx["launches"]["phase"][kind],
-                "lane": kl["launches"][kind]}
+                "lane": kl["launches"][kind],
+                "loop": kp["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",

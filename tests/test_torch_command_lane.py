@@ -10,7 +10,8 @@ assertions on each package, and the two records (replies, counters,
 roles, terms, log tails, the group's device row) must be equal,
 exactly. The wall-clock ones (the watchdog on started coordinators, the
 retry after a reject under a pump thread) make the original's assertions
-on each package.
+on each package. The flake gate's deposed-leader half (20 runs in each
+active-set mode, ``tests/test_flake_gate.py``) runs on the port, slow.
 """
 
 import pytest
@@ -57,3 +58,22 @@ def test_watchdog_bounds_wedged_lane_on_both_packages(mode):
     for rec in got.values():
         assert rec["verdict"] == "maybe"
         assert rec["lane_wedges"] >= 1 and rec["lane_recoveries"] >= 1
+
+
+@pytest.mark.slow
+@pytest.mark.flake_gate
+@pytest.mark.parametrize("mode", L.MODES)
+def test_deposed_leader_regression_20x_on_port(mode):
+    """``tests/test_flake_gate.py``'s 20x repetition of the deposed-leader
+    case, on the port."""
+    lane = L.Lane("ra_tpu_torch")
+    for i in range(20):
+        clear_both()
+        try:
+            L.deposed_leader_redirect(lane, mode)
+        except Exception as e:  # noqa: BLE001 — annotate the iteration
+            raise AssertionError(
+                f"flake gate: regression run {i + 1}/20 failed under "
+                f"active_set={mode!r}: {e}") from e
+        finally:
+            clear_both()

@@ -544,7 +544,10 @@ _BAD_IMPORT = re.compile(r"^\s*(from|import)\s+(jax\b|ra_tpu(\.|\s|$))", re.M)
 def test_no_file_of_the_port_imports_jax_or_the_reference():
     files = list(_port_files((".py",)))
     assert len(files) > 40
-    files.append(os.path.join(ROOT, "chip_smoke.py"))
+    # and what chip_smoke.py loads or runs beside the port on the card
+    files += [os.path.join(ROOT, f) for f in (
+        "chip_smoke.py", "tests/lane_cases.py", "tests/loop_cases.py",
+        "scripts/loop_monitor.py")]
     for path in files:
         src = _read(path)
         assert not _BAD_IMPORT.search(src), path
