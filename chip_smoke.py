@@ -78,7 +78,14 @@ coordinator of 10240 single-replica groups parked for a second: no
 wakeup, no launch, under 10 ms of its loop threads' CPU. Every step
 there is one step-kernel launch (both entry points in the flip soaks),
 no step reaches the plain torch-op step, and ``quorum.cu`` never
-launches.
+launches. On the flip soak's full-width cluster, before it stops,
+phase loop (d) stops the node that leads all 10240 groups x 3 replicas:
+every group must be led again by a survivor, take one more write there,
+and hold every acknowledged value on both survivors
+(``tests/failover_cases.py``), with the process's thread count within 8
+of its count before the stop; it prints the detection time, the time
+until the fleet is led again, the highest term, which path elected each
+group, the lane counters, resident memory and the write rate.
 
 Options (the defaults are the smoke run):
 
@@ -88,6 +95,7 @@ Options (the defaults are the smoke run):
     --switch-interval S    set the interpreter's thread switch interval
                            (sys.setswitchinterval) to S seconds for the
                            main-path runs
+    --seed N               seed of phase loop (d)'s command values
 
 Phases print one line each (and their elapsed time). The line before
 the last is a JSON object ``{"kernels": [...]}`` with each kernel's
@@ -1025,9 +1033,7 @@ def phase_api(torch, C, S, dev, workdir: str) -> dict:
         read_counts["reads_retried"] = sum(n for _, n in reads)
         dropped = [c.transport.dropped for c in coords]
     finally:
-        # followers first: a running coordinator that sees the leaders'
-        # node stop arms one election timer thread per group it follows
-        for c in reversed(coords):
+        for c in coords:
             c.stop()
         for _tables, w, _d in storage:
             w.close()
@@ -1867,6 +1873,15 @@ def loop_cases():
     return LC
 
 
+def failover_cases():
+    """The failover scenario shared with the CPU tests
+    (``tests/failover_cases.py``, standard library only)."""
+    lane_cases()  # puts tests/ on the path
+    import failover_cases as FC
+
+    return FC
+
+
 # the flip soak at full width: one command per group a burst, hot sets
 # across the active set's threshold (capacity / 4 = 2560) both ways
 LOOP_FLIP_BURSTS = (range(GROUPS), range(1024), range(GROUPS),
@@ -1874,24 +1889,35 @@ LOOP_FLIP_BURSTS = (range(GROUPS), range(1024), range(GROUPS),
 LOOP_IDLE_CPU_S = 0.010  # step + egress + sender thread CPU, idle second
 LOOP_REPLY_TIMEOUT_S = 120.0  # a reply at full width, as phase api's
 LOOP_SETTLE_TIMEOUT_S = 600.0  # elections and applies at full width
+FAILOVER_THREADS = 8  # the most threads the leader node's stop may add
 
 
-def phase_loop(torch, C, S, dev, workdir: str) -> dict:
+def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
     """The started wave loops (step thread, egress thread, sender
     thread) on ``dev``: (a) the three scenarios of ``tests/loop_cases.py``
     at the originals' shapes, (b) the auto-mode flip soak at full width,
     3 started coordinators of 10240 groups x 3 replicas, WAL-backed,
-    pipelined, with phase api's election timeout, and (c) idle parking
-    at full width, one coordinator of 10240 single-replica groups. Each
-    scenario makes the original's assertions; here also every step is
-    one step-kernel launch (launches equal to the coordinators'
-    ``steps - sub_steps`` and ``sub_steps``), the flip soaks launch both
-    entry points, an idle second launches nothing and costs the loop's
-    threads under ``LOOP_IDLE_CPU_S`` of CPU, no step reaches the plain
-    torch-op step, and ``quorum.cu`` never launches."""
+    pipelined, with phase api's election timeout, then (d) on that
+    cluster the leader node's failure (``fail_over`` of
+    ``tests/failover_cases.py``): node 0, which leads every group,
+    stops, every group is led again by a survivor and takes one more
+    command (values from ``seed``), both survivors at the acknowledged
+    totals, every trigger armed delivered, none shed, and the process's
+    thread count within ``FAILOVER_THREADS`` of its count before the
+    stop; and (c) idle parking at full width, one coordinator of 10240
+    single-replica groups. Each scenario makes the original's
+    assertions; here also every step is one step-kernel launch
+    (launches equal to the coordinators' ``steps - sub_steps`` and
+    ``sub_steps``), the flip soaks launch both entry points, an idle
+    second launches nothing and costs the loop's threads under
+    ``LOOP_IDLE_CPU_S`` of CPU, no step reaches the plain torch-op
+    step, and ``quorum.cu`` never launches."""
+    import random
+
     from ra_tpu_torch import bench
 
     LC = loop_cases()
+    FC = failover_cases()
     card = lane_cases().Lane("ra_tpu_torch", dev)
     plain = {"full": C.consensus_step_packed_scat_plain,
              "sub": C.consensus_step_packed_sub_scat_plain}
@@ -1938,6 +1964,18 @@ def phase_loop(torch, C, S, dev, workdir: str) -> dict:
         open_storage(coords, names, workdir, storage)
         return bench.wal_logs(storage, GROUPS)
 
+    rng = random.Random(seed)
+    values = [rng.randint(1, 1000) for _ in range(GROUPS)]
+
+    def failover(coords, totals):
+        p0 = launches()
+        rec = FC.fail_over(card, coords, totals, values, bulk=True,
+                           reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
+                           settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
+        rec["launches"] = dict(zip(("full", "sub"),
+                                   (b - a for a, b in zip(p0, launches()))))
+        return rec
+
     out = {}
     S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
     C.consensus_step_packed_scat_plain = counted("full")
@@ -1957,7 +1995,7 @@ def phase_loop(torch, C, S, dev, workdir: str) -> dict:
                 detector_poll_s=0.1, logs=wal_logs, probe=launches,
                 bulk=True,
                 reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
-                settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
+                settle_timeout_s=LOOP_SETTLE_TIMEOUT_S, then=failover)
         finally:
             for _tables, w, _d in storage:
                 w.close()
@@ -1966,6 +2004,16 @@ def phase_loop(torch, C, S, dev, workdir: str) -> dict:
         if rec["leader_counters"]["pipeline_overlap_ns"] <= 0:
             raise AssertionError("phase loop, flip soak at full width: no "
                                  "pipeline overlap on the leader")
+        # (d): fail_over itself waits for every group led by a survivor
+        # and both survivors at the acknowledged totals, or raises
+        fo = rec["then"]
+        if fo["armed"] != 2 * GROUPS or fo["shed"]:
+            raise AssertionError(f"phase loop (d): {fo['armed']} triggers "
+                                 f"armed, {fo['shed']} shed")
+        grown = fo["peak_threads"] - fo["threads_before"]
+        if grown > FAILOVER_THREADS:
+            raise AssertionError(
+                f"phase loop (d): {grown} threads more than before the stop")
         # (c) idle parking at full width
         rec = out["idle_parking_full"] = run(
             "idle_parking_full", LC.idle_parking, prefix="zwfull",
@@ -2026,10 +2074,20 @@ def loop_line(kp: dict, card: str) -> str:
         f"kernel launches in the phase {kp['launches']} | {card}")
 
 
+def failover_line(kf: dict, card: str) -> str:
+    """The measures of phase loop (d), the states and totals left out."""
+    out = {k: v for k, v in kf.items()
+           if k not in ("states", "expect", "leaders")}
+    out["led_by"] = {str(i): kf["leaders"].count(i) for i in (1, 2)}
+    return f"{json.dumps(out)} | {card}"
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--switch-interval", type=float, default=None)
+    ap.add_argument("--seed", type=int, default=12,
+                    help="seed of phase loop (d)'s command values")
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be at least 1")
@@ -2193,11 +2251,14 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     workdir = tempfile.mkdtemp(prefix="ra_smoke_loop_")
     try:
-        kp = phase_loop(torch, C, S, dev, workdir)
+        kp = phase_loop(torch, C, S, dev, workdir, args.seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     log(f"phase loop: {loop_line(kp, card)} | "
         f"{time.perf_counter() - t:.2f} s")
+    log(f"phase loop (d), the leader node's failure on (b)'s {GROUPS} groups "
+        f"x 3 replicas: {failover_line(kp['flip_soak_full']['then'], card)}")
+
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
     replaces = {"full": "ra_tpu/ops/consensus.py:693",

@@ -68,6 +68,7 @@ from ra_tpu_torch.log.memory import MemoryLog
 from ra_tpu_torch.machine import Machine, normalize_apply_result
 from ra_tpu_torch.ops import consensus as C
 from ra_tpu_torch.runtime.device import DeviceSeam, ShardedSeam
+from ra_tpu_torch.runtime.timers import TimerService
 from ra_tpu_torch.protocol import (
     AppendEntriesReply,
     AppendEntriesRpc,
@@ -577,6 +578,11 @@ class BatchCoordinator:
         self._detector = threading.Thread(
             target=self._detect_loop, name=f"ra-batch-det-{node_name}", daemon=True
         )
+        # node-down election triggers share one timer thread, started
+        # at the first node-down and closed by stop(): a timer thread a
+        # followed group started thousands at full width
+        self._down_timers: Optional[TimerService] = None
+        self._down_lock = threading.Lock()
         self._started = False
 
     # -- node-registry interface (same duck type as RaNode) ---------------
@@ -878,6 +884,10 @@ class BatchCoordinator:
             # a device fetch at interpreter exit can crash the XLA
             # runtime's C++ teardown
             self._detector.join(timeout=5)
+        with self._down_lock:
+            timers, self._down_timers = self._down_timers, None
+        if timers is not None:
+            timers.close()  # triggers not yet due are dropped
         from ra_tpu_torch import counters as _counters
         from ra_tpu_torch import health as _health
 
@@ -4657,13 +4667,26 @@ class BatchCoordinator:
                 # _handle_rare unable to drop the trigger when the
                 # leader re-establishes contact during the delay
                 armed = self.clock.monotonic()
-                threading.Timer(
+                # the deadline stays on the wall clock, as a
+                # threading.Timer's; none is armed once stopped
+                timers = self._down_timer()
+                if timers is None:
+                    return
+                timers.after(
                     delay,
                     lambda gg=g, at=armed: self.deliver(
                         (gg.name, self.name),
                         ElectionTimeout(at), None,
                     ),
-                ).start()
+                )
+
+    def _down_timer(self) -> Optional[TimerService]:
+        """The timer thread of the node-down election triggers, started
+        by the first call; ``None`` once ``stop()`` has begun."""
+        with self._down_lock:
+            if self._down_timers is None and self.running:
+                self._down_timers = TimerService()
+            return self._down_timers
 
     def overview(self) -> dict:
         return {

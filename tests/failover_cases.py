@@ -1,0 +1,483 @@
+"""The failover of a whole fleet: the node that leads every group stops,
+and the survivors re-elect all of them. Written once for any package
+with the reference's module layout (``ra_tpu`` or ``ra_tpu_torch``) and
+any device, as ``tests/loop_cases.py`` is: it takes a
+``lane_cases.Lane`` and uses the standard library only, so the card run
+imports no JAX.
+
+- ``leader_failover``: three started coordinators, every group elected
+  on node 0, one acknowledged command a group, then ``fail_over``:
+  node 0 stops; every group must be led again by node 1 or 2, take one
+  more acknowledged command there, and hold the sum of its acknowledged
+  values on both survivors. ``fail_over`` also runs on another
+  scenario's cluster (``loop_cases.flip_soak``'s ``then``).
+- ``node_down_triggers``: one hand-stepped follower coordinator's
+  node-down election triggers (``_on_node_down``), the threads they
+  take, their delays and ``armed`` stamps, and whether a trigger is
+  dropped once its leader is heard from again during the delay.
+
+``tests/test_torch_failover.py`` runs both on both packages on the CPU;
+``chip_smoke.py`` (phase loop (d)) runs ``fail_over`` on the card at
+10240 groups x 3 replicas, WAL-backed, on the full-width flip soak's
+cluster. A survivor of the reference arms one ``threading.Timer`` a
+followed group; the port's arms them all on one timer thread.
+"""
+
+import os
+import random
+import threading
+import time
+
+from lane_cases import ManualClock, step_until
+from loop_cases import await_, replies_ok, steps_of
+
+
+def os_threads() -> int:
+    """The process's thread count, native threads included."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("Threads:"):
+                return int(line.split()[1])
+    raise RuntimeError("no thread count in /proc/self/status")
+
+
+def resident_bytes() -> int:
+    """The process's resident memory, from ``/proc/self/statm``."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class Sampler:
+    """Samples the thread count and resident memory every ``every_s`` on
+    a thread of its own, keeping the peaks; ``mark()`` takes a sample
+    by hand and returns it."""
+
+    def __init__(self, every_s=0.01):
+        self.every_s = every_s
+        self.peak_threads = self.peak_rss = 0
+        self.samples = 0
+        self._done = threading.Event()
+        self._thread = threading.Thread(target=self._run,
+                                        name="failover-sampler", daemon=True)
+
+    def mark(self):
+        n, rss = os_threads(), resident_bytes()
+        self.peak_threads = max(self.peak_threads, n)
+        self.peak_rss = max(self.peak_rss, rss)
+        self.samples += 1
+        return n, rss
+
+    def _run(self):
+        while not self._done.wait(self.every_s):
+            self.mark()
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._done.set()
+        self._thread.join(timeout=5)
+
+
+class TriggerSpy:
+    """Watches coordinators for their node-down calls, every
+    ``ElectionTimeout`` delivered to them (sent by the detector's
+    suspicion sweep, or else by a node-down trigger) and which of those
+    opened a pre-vote round, by group. It wraps the instance's
+    ``deliver``, ``_handle_rare`` and ``_on_node_down``, which the
+    coordinator's threads look up on the instance at each call."""
+
+    def __init__(self, lane, coords, t0):
+        self.downs = []  # (s since t0, node, node seen down)
+        self.delivered = []  # (s since t0, node, group, armed_at, path)
+        self.started = {}  # (group, node) -> path of the last round opener
+        self.shed = 0  # deliveries refused (deliver returned False)
+        self._sent = {}  # id(msg) -> (msg, path)
+        self._et = lane.protocol.ElectionTimeout
+        self._t0 = t0
+        self._lock = threading.Lock()
+        for c in coords:
+            self._watch(c)
+
+    def _watch(self, c):
+        et, sent = self._et, self._sent
+        deliver, handle, down = c.deliver, c._handle_rare, c._on_node_down
+
+        def spy_deliver(to, msg, from_sid):
+            if type(msg) is not et:
+                return deliver(to, msg, from_sid)
+            path = ("sweep" if threading.current_thread() is c._detector
+                    else "trigger")
+            with self._lock:
+                sent[id(msg)] = (msg, path)
+                self.delivered.append((time.perf_counter() - self._t0,
+                                       c.name, to[0], msg.armed_at, path))
+            ok = deliver(to, msg, from_sid)
+            if not ok:
+                with self._lock:
+                    self.shed += 1
+            return ok
+
+        def spy_handle(g, msg, *args, **kw):
+            if type(msg) is not et:
+                return handle(g, msg, *args, **kw)
+            token = g.pre_vote_token
+            out = handle(g, msg, *args, **kw)
+            if g.pre_vote_token != token:
+                entry = sent.get(id(msg))
+                self.started[(g.name, c.name)] = (
+                    entry[1] if entry is not None and entry[0] is msg
+                    else "other")
+            return out
+
+        def spy_down(node_name):
+            self.downs.append((time.perf_counter() - self._t0, c.name,
+                               node_name))
+            return down(node_name)
+
+        c.deliver, c._handle_rare, c._on_node_down = (
+            spy_deliver, spy_handle, spy_down)
+
+
+def _send(lane, coord, sids, values, bulk):
+    futs = [lane.api.Future() for _ in sids]
+    msgs = [(sid, lane.command(v, fut), None)
+            for sid, v, fut in zip(sids, values, futs)]
+    if bulk:
+        coord.deliver_many(msgs)
+    else:
+        for m in msgs:
+            coord.deliver(*m)
+    return futs
+
+
+def leader_failover(lane, prefix="lf", groups=64, capacity=None,
+                    election_timeout_s=0.3, detector_poll_s=0.05,
+                    tick_interval_s=0.2, seed=0, logs=None, probe=None,
+                    bulk=False, reply_timeout_s=30.0,
+                    settle_timeout_s=60.0, sample_every_s=0.01):
+    """Three started coordinators ``prefix``0..2 with ``groups`` groups
+    (members on all three, an adder machine), every group elected on
+    node 0 by one ``ElectionTimeout``; one acknowledged command a group
+    (values from ``random.Random(seed)``, 1..1000), applied on every
+    replica; then ``fail_over``:
+    node 0 stops, every group is led again by node 1 or 2 and takes one
+    more command there, and both survivors hold each group's two values.
+
+    ``logs(coords, node_names)``, where given, returns each node's list
+    of logs by group (e.g. WAL-backed), which the caller closes after
+    this returns. ``probe()`` (e.g. the card's launch counts) is read
+    before the stop and at the end. ``bulk`` sends the election
+    triggers and each round of commands through one ``deliver_many``
+    a coordinator, where 10240 single deliveries could fill the lane.
+
+    The record is ``fail_over``'s, with the election's and the first
+    write's wall time, the probes, each coordinator's ``steps`` and
+    ``sub_steps`` (read after it stopped) and the wall time."""
+    capacity = capacity or groups
+    names = [f"{prefix}{i}" for i in range(3)]
+    gname = [f"g{g}" for g in range(groups)]
+    rng = random.Random(seed)
+    first = [rng.randint(1, 1000) for _ in range(groups)]
+    second = [rng.randint(1, 1000) for _ in range(groups)]
+    coords = [
+        lane.coord(n, capacity=capacity, num_peers=3,
+                   election_timeout_s=election_timeout_s,
+                   detector_poll_s=detector_poll_s,
+                   tick_interval_s=tick_interval_s)
+        for n in names
+    ]
+    rec = {"groups": groups, "probes": []}
+    t0 = time.perf_counter()
+    try:
+        for c in coords:
+            c.start()
+        per_node = (logs(coords, names) if logs is not None
+                    else [[None] * groups for _ in coords])
+        for c, node_logs in zip(coords, per_node):
+            c.add_groups([(gname[g], f"cl{g}", [(gname[g], n) for n in names],
+                           lane.adder(), node_logs[g])
+                          for g in range(groups)])
+        t = time.perf_counter()
+        msgs = [((gname[g], names[0]), lane.protocol.ElectionTimeout(), None)
+                for g in range(groups)]
+        if bulk:
+            coords[0].deliver_many(msgs)
+        else:
+            for m in msgs:
+                coords[0].deliver(*m)
+        by0 = coords[0].by_name
+        await_(lambda: all(by0[n].role == lane.C.R_LEADER for n in gname),
+               timeout=settle_timeout_s, what="leaders on node 0")
+        rec["election_s"] = time.perf_counter() - t
+
+        t = time.perf_counter()
+        replies_ok(_send(lane, coords[0], [(n, names[0]) for n in gname],
+                         first, bulk), reply_timeout_s)
+        rec["write_before"] = _rate(groups, time.perf_counter() - t)
+        # every replica applied it, so each follower knows its leader
+        await_(lambda: all(c.by_name[gname[g]].machine_state == first[g]
+                           for c in coords for g in range(groups)),
+               timeout=settle_timeout_s, what="every replica applied")
+        rec["probes"].append(probe() if probe else None)
+        rec.update(fail_over(lane, coords, first, second, bulk=bulk,
+                             reply_timeout_s=reply_timeout_s,
+                             settle_timeout_s=settle_timeout_s,
+                             sample_every_s=sample_every_s))
+    finally:
+        for c in coords:
+            c.stop()
+    rec["probes"].append(probe() if probe else None)
+    rec.update(steps_of(coords))
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def fail_over(lane, coords, totals, values, bulk=False, reply_timeout_s=30.0,
+              settle_timeout_s=60.0, sample_every_s=0.01):
+    """On three started coordinators whose groups ``g0``.. are all led
+    by ``coords[0]`` and hold the acknowledged ``totals`` (by group) on
+    every replica: stop ``coords[0]``, wait on state until every group
+    is led by one of the survivors, send one more command a group
+    (``values``) through its new leader (one ``deliver_many`` a
+    survivor with ``bulk``), every reply ``ok``, and wait until each
+    group's machine state on both survivors is its total plus its
+    value. The survivors are left running.
+
+    The record holds, in seconds from the stop: ``detect_s`` (the first
+    survivor's node-down call), ``first_trigger_s`` (the first node-down
+    trigger delivered), ``led_s`` (every group led again) and
+    ``led_quantiles_s`` (half, 90 and 99 % of the groups first seen led,
+    polled every 0.1 s); the highest term and the new leaders' terms;
+    how many groups a node-down trigger and how many the suspicion
+    sweep elected; the triggers armed (one a group a survivor follows
+    on node 0) and the ``ElectionTimeout`` deliveries by path, after
+    waiting until every armed trigger was delivered, and how many of
+    them ``deliver`` refused (``shed``); the peak thread count and
+    resident memory sampled from the stop to the end beside their
+    values just before it; ``ingress_ring_full`` and
+    ``ingress_overflow_msgs`` of the survivors; the write's wall time
+    and commands per second; the leader of each group (1 or 2); the
+    machine states and the totals they must equal."""
+    groups = len(totals)
+    names = [c.name for c in coords]
+    gname = [f"g{g}" for g in range(groups)]
+    survivors = coords[1:]
+    rec = {}
+    # the node-down triggers each survivor will arm: one a group it
+    # follows whose leader is on node 0
+    rec["armed"] = sum(
+        1 for c in survivors for n in gname
+        if c.by_name[n].sid_of(c.by_name[n].leader_slot) == (n, names[0]))
+    with Sampler(sample_every_s) as sampler:
+        t0 = time.perf_counter()
+        spy = TriggerSpy(lane, survivors, t0)
+        rec["threads_before"], rec["rss_before"] = sampler.mark()
+        coords[0].stop()
+        rec["stop_s"] = time.perf_counter() - t0
+
+        def leader_of(n):
+            for c in survivors:
+                if c.by_name[n].role == lane.C.R_LEADER:
+                    return c
+            return None
+
+        # when each group is first seen led, polled every 0.1 s
+        led_at = {}
+        deadline = time.monotonic() + settle_timeout_s
+        while True:
+            now = time.perf_counter() - t0
+            led_at.update((n, now) for n in gname
+                          if n not in led_at and leader_of(n) is not None)
+            if len(led_at) == groups:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"{groups - len(led_at)} groups never led again")
+            time.sleep(0.1)
+        rec["led_s"] = time.perf_counter() - t0
+        when = sorted(led_at.values())
+        rec["led_quantiles_s"] = {
+            q: when[min(groups - 1, groups * q // 100)] for q in (50, 90, 99)}
+        leaders = [leader_of(n) for n in gname]
+        rec["leaders"] = [names.index(c.name) for c in leaders]
+        terms = [c.by_name[n].term for c, n in zip(leaders, gname)]
+        rec["term"] = max(c.by_name[n].term for c in survivors for n in gname)
+        rec["leader_terms"] = {t: terms.count(t) for t in sorted(set(terms))}
+        # the path that opened each group's winning round (a leader
+        # opens no further round)
+        by_path = {}
+        for n, c in zip(gname, leaders):
+            p = spy.started.get((n, c.name), "none")
+            by_path[p] = by_path.get(p, 0) + 1
+        rec["elected_by"] = by_path
+
+        t = time.perf_counter()
+        futs = []
+        for c in survivors:
+            mine = [g for g in range(groups) if leaders[g] is c]
+            futs += _send(lane, c, [(gname[g], c.name) for g in mine],
+                          [values[g] for g in mine], bulk)
+        replies_ok(futs, reply_timeout_s)
+        rec["write_after"] = _rate(groups, time.perf_counter() - t)
+        expect = [a + b for a, b in zip(totals, values)]
+        await_(lambda: all(c.by_name[gname[g]].machine_state == expect[g]
+                           for c in survivors for g in range(groups)),
+               timeout=settle_timeout_s,
+               what="both survivors at the acknowledged totals")
+        rec["settled_s"] = time.perf_counter() - t0
+        # every armed trigger reaches its survivor, late or not
+        await_(lambda: sum(1 for d in spy.delivered
+                           if d[4] == "trigger") >= rec["armed"],
+               timeout=settle_timeout_s, what="every trigger delivered")
+        sampler.mark()
+    rec["peak_threads"] = sampler.peak_threads
+    rec["peak_rss"] = sampler.peak_rss
+    rec["samples"] = sampler.samples
+    downs = [d for d in spy.downs if d[2] == names[0]]
+    assert downs, "no survivor saw node 0 stop"
+    rec["detect_s"] = min(d[0] for d in downs)
+    triggers = [d[0] for d in spy.delivered if d[4] == "trigger"]
+    rec["first_trigger_s"] = min(triggers) if triggers else None
+    rec["delivered"] = {p: sum(1 for d in spy.delivered if d[4] == p)
+                        for p in ("trigger", "sweep")}
+    rec["shed"] = spy.shed
+    rec["states"] = [[c.by_name[n].machine_state for n in gname]
+                     for c in survivors]
+    rec["expect"] = expect
+    rec["counters"] = {
+        k: [c.counters.get(k) for c in survivors]
+        for k in ("ingress_ring_full", "ingress_overflow_msgs")}
+    return rec
+
+
+def _rate(cmds, s):
+    return {"cmds": cmds, "s": s, "cmds_per_s": cmds / s}
+
+
+def node_down_triggers(lane, prefix="nd", groups=64, election_timeout_s=1.0,
+                       contact=False, stop_early=False, ring_slots=8192,
+                       settle_timeout_s=30.0):
+    """One follower's node-down election triggers, hand-stepped on a
+    ``ManualClock``: three unstarted coordinators, every group elected
+    on node 0 and its noop applied on all three; then node 1's
+    ``_on_node_down`` is called for node 0, whose leaders stay up (the
+    call stands for a detection), with ``random`` seeded so that the
+    delays it draws are known.
+
+    - ``stop_early``: node 1 stops right after the call, before any
+      trigger is due;
+    - ``ring_slots``: node 1's ingress lanes' size: the triggers that
+      find their lane full must ride the overflow queue;
+    - ``contact``: the clock moves 1 s and node 0 commits one more
+      command a group on all three nodes before the triggers are due,
+      so that every group has heard its leader after its ``armed``
+      stamp (the record holds the wall time that took).
+
+    Otherwise the scenario waits, on state, until every trigger has
+    been delivered and steps node 1 three times. The record holds the
+    threads the call started, the detection time and the ``armed``
+    stamps on the manual clock, the seeded delays by group, the groups
+    whose trigger came before its delay had passed since the call
+    began, the most any came after it had passed since the call ended,
+    node 1's roles, pre-vote rounds opened and lane counters
+    (``ingress_ring_full``, ``ingress_overflow_msgs``) after the steps, the
+    triggers delivered after a stop, and the threads the call started
+    that are still alive after node 1 stopped (at once with
+    ``stop_early``, else once those that end on their own have ended
+    or ``settle_timeout_s`` has passed)."""
+    clock = ManualClock()
+    names = [f"{prefix}{i}" for i in range(3)]
+    gname = [f"g{g}" for g in range(groups)]
+    coords = [
+        lane.coord(n, capacity=groups, num_peers=3, clock=clock,
+                   election_timeout_s=election_timeout_s,
+                   ingress_ring_slots=ring_slots if i == 1 else 8192)
+        for i, n in enumerate(names)
+    ]
+    follower = coords[1]
+    by1 = follower.by_name
+    rec = {"groups": groups}
+    got = {}
+    before = set(threading.enumerate())
+    try:
+        for c in coords:
+            c.add_groups([(gname[g], f"cl{g}", [(gname[g], n) for n in names],
+                           lane.adder()) for g in range(groups)])
+        for n in gname:
+            coords[0].deliver((n, names[0]), lane.protocol.ElectionTimeout(),
+                              None)
+        by0 = coords[0].by_name
+        step_until(coords, lambda: all(
+            by0[n].role == lane.C.R_LEADER
+            and by0[n].last_applied >= by0[n].noop_index
+            and by1[n].last_applied >= by0[n].noop_index for n in gname),
+            what="leaders on node 0, noops applied on node 1")
+        tokens = [by1[n].pre_vote_token for n in gname]
+
+        deliver = follower.deliver
+        et = lane.protocol.ElectionTimeout
+
+        def spy(to, msg, from_sid):
+            if type(msg) is et:
+                got[to[0]] = (time.monotonic(), msg.armed_at)
+            return deliver(to, msg, from_sid)
+
+        follower.deliver = spy
+        random.seed(groups)
+        want = [election_timeout_s * (1 + random.random())
+                for _ in range(groups)]
+        random.seed(groups)
+        before = set(threading.enumerate())
+        rec["detected_at"] = clock.monotonic()
+        w0 = time.monotonic()
+        follower._on_node_down(names[0])
+        w1 = time.monotonic()
+        rec["new_threads"] = sorted(t.name for t in threading.enumerate()
+                                    if t not in before)
+        rec["want"] = want
+        if stop_early:
+            follower.stop()
+            rec["delivered_after_stop"] = len(got)
+            rec["alive_after_stop"] = sorted(
+                t.name for t in threading.enumerate()
+                if t not in before and t.is_alive())
+            return rec
+        if contact:
+            clock.advance(1.0)
+            futs = [lane.api.Future() for _ in gname]
+            for n, fut in zip(gname, futs):
+                coords[0].deliver((n, names[0]), lane.command(1, fut), None)
+            step_until(coords, lambda: all(f.done() for f in futs) and all(
+                c.by_name[n].machine_state == 1
+                for c in coords for n in gname),
+                what="one more command on every replica")
+            rec["contact_s"] = time.monotonic() - w0
+        await_(lambda: len(got) == groups, timeout=settle_timeout_s,
+               what="every trigger delivered")
+        rec["armed"] = sorted({a for _t, a in got.values()})
+        rec["early"] = [n for g, n in enumerate(gname)
+                        if got[n][0] - w0 < want[g]]
+        rec["late_s"] = max(got[n][0] - w1 - want[g]
+                            for g, n in enumerate(gname))
+        for _ in range(3):
+            follower.step_once()
+        rec["roles"] = sorted({by1[n].role for n in gname})
+        rec["rounds"] = sum(by1[n].pre_vote_token - t
+                            for n, t in zip(gname, tokens))
+        rec["counters"] = {k: follower.counters.get(k) for k in (
+            "ingress_ring_full", "ingress_overflow_msgs")}
+    finally:
+        for c in coords:
+            c.stop()
+    # a fired threading.Timer ends on its own, just after its callback
+    deadline = time.monotonic() + settle_timeout_s
+    while True:
+        alive = sorted(t.name for t in threading.enumerate()
+                       if t not in before and t.is_alive())
+        if not alive or time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    rec["alive_after_stop"] = alive
+    return rec

@@ -113,7 +113,7 @@ def steps_of(coords) -> dict:
 def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
               bursts=FLIP_BURSTS, election_timeout_s=0.05,
               detector_poll_s=0.02, logs=None, probe=None, bulk=False,
-              reply_timeout_s=30.0, settle_timeout_s=30.0):
+              reply_timeout_s=30.0, settle_timeout_s=30.0, then=None):
     """test_auto_mode_flip_soak_crosses_saturation_boundary: three
     started "auto" coordinators; every group elected on ``prefix``0,
     then bursts of ``per_burst`` commands to each group of a hot set
@@ -126,7 +126,10 @@ def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
     this returns. ``probe()`` is read before the first burst and after
     each. ``bulk`` sends the election triggers and each burst round
     through one ``deliver_many`` (see ``send``). The record also waits
-    for all three replicas' states."""
+    for all three replicas' states. ``then(coords, totals)``, where
+    given, runs on the started cluster after that (every group led by
+    ``prefix``0, every replica at ``totals``, by group) and before it
+    stops; its result is the record's ``then``."""
     names = [f"{prefix}{i}" for i in range(3)]
     coords = [
         lane.coord(n, capacity=capacity, num_peers=3, active_set="auto",
@@ -186,6 +189,8 @@ def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
         rec["leader_counters"] = {
             k: coords[0].counters.get(k)
             for k in ("pipeline_steps", "pipeline_overlap_ns")}
+        if then is not None:
+            rec["then"] = then(coords, expect)
     finally:
         # followers first: a running coordinator that sees the leaders'
         # node stop arms an election timer thread per group it follows
