@@ -26,8 +26,10 @@ three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
 WAL-backed logs, cooperative pipelined stepping, through the step
 kernels, and checks that every command was committed and applied on all
 three replicas. The same main path runs once more with the plain
-torch-op step, for comparison within the run. Then phase api drives the
-same 10240 groups x 3 replicas on three started coordinators (each with
+torch-op step, for comparison within the run, its depth cut to 2560
+groups x 3 replicas (``CUT_GROUPS``) to make room for phase queue. Then
+phase api drives the same 10240 groups x 3 replicas on three started
+coordinators (each with
 its own step thread) through the client API, ``ra_tpu_torch.api``: one
 command and one consistent read per group from 32 client threads, every
 reply and read checked, the replicas of a sample of groups compared.
@@ -36,28 +38,20 @@ Phase harness then runs the fault-injection harnesses on the card:
 churn; every nemesis dimension at once, with coordinator crash-restarts
 from the WAL and live active-set mode flips, once with the native host
 paths off; lease reads under one-way
-partitions; ENOSPC storms), the live linearizability workload, and the
-planted stale-read bug, which the checker must catch in each active-set
-mode. Phase bench last runs the port's bench, ``python -m
-ra_tpu_torch.bench``, each bench in a process of its own: the decision
-bench (10240 groups x 200 steps through the step kernel), the durable
-headline at the full 10240 groups x 3 replicas, WAL-backed, pipelined,
-with its depth cut to ``BENCH_CMDS`` commands per group (the bench's
-default is 96), and the read bench (lease on against the lease-off
-control) at its defaults; every state check of the bench must hold, and
-each bench's JSON line is printed. Then the operator tools run on the
-card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
-and the decision bench's loop on the step kernel is held against the
-same loop on the plain step at 10240 groups. Phase mesh then drives the
+partitions; ENOSPC storms; the fifo workload, quorum queues, under
+every nemesis dimension at the soak's seeds 2 and 3), the live
+linearizability workload, and the planted stale-read bug, which the
+checker must catch in each active-set mode. Phase mesh then drives the
 multi-device path and the graft entry: ``graft_entry.entry()`` on the
 card (its quorum scan through ``quorum.cu``) against the same on the
 CPU; the step over four slices of the group axis on ``cuda:0`` against
 the unsharded step kernel and the plain step at 10240 groups, chained,
 with scatter rows at every slice edge and pads; ``graft_entry.dryrun_multichip(4)`` (its four
-phases over a four-slice mesh on ``cuda:0``); and the main path's 10240
-groups x 3 replicas, WAL-backed, through coordinators over a four-slice
-mesh (four measured waves, as phase main), every command checked on all
-three replicas, one step-kernel launch a slice a step and no active set.
+phases over a four-slice mesh on ``cuda:0``); and the main path,
+WAL-backed, its depth cut to 2560 groups x 3 replicas, through
+coordinators over a four-slice mesh (four measured waves, as phase
+main), every command checked on all three replicas, one step-kernel
+launch a slice a step and no active set.
 One card makes a mesh slices of that card: this checks the path, not
 scaling. Phase lane then runs the hand-stepped command-lane scenarios of
 the JAX package's tests (a deposed leader's and a truncated command's
@@ -67,7 +61,7 @@ record equal to the port's CPU record of the same interleaving, the
 active set launching the active-set kernel and ``never`` the full-width
 one; the command-lane watchdog on the card in each mode; and the native
 mailbox pack into the pinned buffers the coordinator uploads from,
-byte for byte against the Python stores. Phase loop last runs the
+byte for byte against the Python stores. Phase loop then runs the
 started wave loops (step, egress and sender threads;
 ``tests/loop_cases.py``) on the card: the JAX package's auto-mode flip
 soak, idle parking and threaded pipeline at their own shapes, then the
@@ -86,6 +80,36 @@ and hold every acknowledged value on both survivors
 of its count before the stop; it prints the detection time, the time
 until the fleet is led again, the highest term, which path elected each
 group, the lane counters, resident memory and the write rate.
+Phase queue then runs quorum queues (``tests/queue_cases.py``): the
+fifo machine in 1024 queues x 3 replicas (``QUEUE_GROUPS``, its depth
+cut for the run's time) on three started coordinators, WAL-backed in the temporary
+directory, each log snapshotting at a release cursor once 8 entries
+have passed; per queue a consumer checks out, four messages are
+enqueued and delivered, the consumer settles two and fails (``down``),
+its two in-flight messages are requeued to a second consumer first and
+in order, which settles them, so the queue empties and every replica
+snapshots (on the coordinators' snapshot writer threads, off the apply
+path). A second run on the same cluster cuts node 2 off before its
+enqueues and heals it after the leaders' snapshots, and node 2 must
+catch up in every queue by a snapshot install (the transfers on each
+coordinator's bounded sender pool). Every acknowledged enqueue must be
+delivered and settled once, the replies and deliveries must equal the
+fifo machine's alone, all replicas' fingerprints and the device's
+snapshot columns must agree with the host, no queue may lose its leader
+in the first run, and every step is one step-kernel launch; it prints
+each wave's rate, the snapshot writes' times and the catch-up's.
+Phase bench last runs the port's bench, ``python -m ra_tpu_torch.bench``,
+each bench in a process of its own: the decision bench (10240 groups x
+200 steps through the step kernel), the durable headline at the full
+10240 groups x 3 replicas, WAL-backed, pipelined, with its depth cut to
+``BENCH_CMDS`` commands per group (the bench's default is 96), and the read bench (lease on against the lease-off
+control) at its defaults; every state check of the bench must hold, and
+each bench's JSON line is printed. Then the operator tools run on the
+card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
+and the decision bench's loop on the step kernel is held against the
+same loop on the plain step at 10240 groups.
+The clusters' directories are removed in the background while later
+phases run, and waited for at the end.
 
 Options (the defaults are the smoke run):
 
@@ -111,7 +135,6 @@ import argparse
 import json
 import os
 import re
-import shutil
 import statistics
 import subprocess
 import sys
@@ -127,6 +150,20 @@ GROUPS = 10240
 PEERS = 3
 SUFFIX_K = 32
 WAVES = 4  # full-fleet command waves on the main path
+# depth cut of two earlier paths, to make room for phase queue within
+# the run's time limit: phase main's plain-step run (a comparison) and
+# phase mesh's (d) over 4 slices drive the main path at this many groups
+# x 3 replicas; phase main's kernel run, phase bench's headline and
+# phases api and loop stay at GROUPS (PERF.md lists the phase times
+# before and after)
+CUT_GROUPS = 2560
+# phase queue's depth: its two runs write 5 snapshots a queue and
+# install one, each a dozen file-system operations with their fsyncs,
+# in the temporary directory. At 10240 queues x 3 on the card machine's
+# 9p temporary directory the snapshots of the two runs took about 570 s
+# and the catch-up installed 16 a second (PERF.md): the phase alone
+# outran the run's time limit, so it runs at this many queues x 3
+QUEUE_GROUPS = 1024
 TIMED_CALLS = 200  # per timed function (median reported)
 # the active-set step's shape: the coordinator's power-of-two pad over
 # 1500 hot groups
@@ -167,6 +204,28 @@ ALU_OPS_PER_S = 67e12
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+# the clusters' directories (up to 30,720 logs each) are removed by an
+# ``rm`` process of their own while the next phases run; main waits for
+# all of them before its last lines, and on its way out
+REMOVALS: list = []
+
+
+def remove_later(d: str) -> None:
+    REMOVALS.append(subprocess.Popen(["rm", "-rf", "--", d]))
+
+
+def wait_removals() -> None:
+    while REMOVALS:
+        REMOVALS.pop().wait()
+
+
+def fs_type(d: str) -> str:
+    """The type of the file system holding ``d``, from ``df -T``."""
+    out = subprocess.run(["df", "-T", d], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return out[1].split()[1] if len(out) > 1 else "unknown"
 
 
 def nvidia_smi_line() -> str:
@@ -646,18 +705,20 @@ def state_tensors(C, state) -> list:
 
 
 def phase_main(torch, C, S, dev, workdir: str, tag: str,
-               use_kernels: bool = True, mesh=None) -> dict:
-    """The main path with coordinators named ``tag``0..2: through the
-    step kernels, or (``use_kernels=False``) through the plain torch-op
-    step for comparison; with ``mesh`` (a device list) each
-    coordinator's groups are cut into that many slices, each stepped at
-    full width (one step-kernel launch a slice a step, no active set)."""
+               use_kernels: bool = True, mesh=None,
+               groups: int = GROUPS) -> dict:
+    """The main path with coordinators named ``tag``0..2 hosting
+    ``groups`` groups x 3 replicas: through the step kernels, or
+    (``use_kernels=False``) through the plain torch-op step for
+    comparison; with ``mesh`` (a device list) each coordinator's groups
+    are cut into that many slices, each stepped at full width (one
+    step-kernel launch a slice a step, no active set)."""
     from ra_tpu_torch import bench, obs
     from ra_tpu_torch.models.bench_machine import BenchMachine
     from ra_tpu_torch.protocol import Command, ElectionTimeout, USR
     from ra_tpu_torch.runtime.coordinator import BatchCoordinator
 
-    g_n = GROUPS
+    g_n = groups
     # each fused step's span on the card's timeline, bracketed with CUDA
     # events, and the host's wall and thread CPU time for the call (the
     # coordinator looks the step functions up on the module per call;
@@ -863,6 +924,7 @@ def phase_main(torch, C, S, dev, workdir: str, tag: str,
             for (st, kind), ev in sorted(step_events.items())
         }
         return {
+            "groups": g_n,
             "setup_s": t_setup,
             "election_s": t_elect,
             "waves_s": t_waves,
@@ -1097,8 +1159,8 @@ def main_line(km: dict, card: str) -> str:
         f"mean host wall ms, mean host thread CPU ms): "
         f"{km['step_ms']}; wave-phase split of the measured waves (ms "
         f"summed over the 3 coordinators): {km['wave_split_ms']}; native "
-        f"host paths {km['native']}; profiled extra wave: {GROUPS} cmds in "
-        f"{km['profiled_wave_s']:.3f} s, device busy "
+        f"host paths {km['native']}; profiled extra wave: {km['groups']} cmds "
+        f"in {km['profiled_wave_s']:.3f} s, device busy "
         f"{km['device_busy_ms']:.3f} ms = {km['device_busy_share']:.6f} of "
         f"its wall time, top kernels (ms) {km['top_kernels']} | {card}")
 
@@ -1138,6 +1200,22 @@ HARNESS_RUNS = (
                        membership=False, restarts=False, disk_full=True,
                        op_timeout=3.0),
      ("disk_full", "batch_degraded", "batch_resumed"), (), ("sub",)),
+    # tests/test_soak.py's combined grid, fifo workload (quorum queues:
+    # enqueue, checkout, settle, return, down), at its seeds 2 and 3:
+    # every acked enqueue delivered, none applied twice, the drain's
+    # release cursor snapshotted; both flip the active-set mode, 3 to
+    # never and back, so both step kernels run. Seed 1 is cut for the
+    # run's time (44-46 s on the card, most of it its disk storms'
+    # degrade and resume windows; PERF.md); tests/test_torch_harness.py
+    # runs seeds 1-3 on the CPU
+    ("fifo_combined_2", dict(seed=2, n_ops=60, combined=True,
+                             workload="fifo"),
+     ("fifo_settled", "coord_restart"), ("nemesis_modeflip_injected",),
+     ("sub",)),
+    ("fifo_combined_3", dict(seed=3, n_ops=60, combined=True,
+                             workload="fifo"),
+     ("fifo_settled", "coord_restart"), ("nemesis_modeflip_injected",),
+     ("full", "sub")),
 )
 STALE_READ_MODES = ("auto", "always", "never")
 
@@ -1704,7 +1782,8 @@ def phase_mesh(torch, C, S, dev, workdir: str) -> dict:
 
     # (d) the main path's shape through a mesh (phase_main zeroes the
     # counts just before it drives the path and reads them just after)
-    r = phase_main(torch, C, S, dev, workdir, "mesh_", mesh=[dev] * n)
+    r = phase_main(torch, C, S, dev, workdir, "mesh_", mesh=[dev] * n,
+                   groups=CUT_GROUPS)
     out["main"] = r
     out["launches"]["main"] = r["launches"]
     out["launches"]["phase"] = {
@@ -1728,7 +1807,8 @@ def mesh_line(kx: dict, card: str) -> str:
         f"slices {kx['seam_ms']['sharded']:.6f} ms, of which the mailbox "
         f"split {kx['seam_ms']['split']:.6f} ms; (c) dryrun_multichip({MESH_SLICES}): "
         f"{kx['dryrun'][-1]}, launches {kx['launches']['dryrun']}; (d) main "
-        f"path over {MESH_SLICES} slices on {kx['device']}: set-up "
+        f"path at {r['groups']} groups x 3 replicas over {MESH_SLICES} "
+        f"slices on {kx['device']}: set-up "
         f"{r['setup_s']:.3f} "
         f"s; {main_line(r, card)}")
 
@@ -2082,12 +2162,135 @@ def failover_line(kf: dict, card: str) -> str:
     return f"{json.dumps(out)} | {card}"
 
 
+# ---------------------------------------------------------------------------
+# phase 11: quorum queues at full width on the card
+
+
+def queue_cases():
+    """The quorum-queue scenarios shared with the CPU tests
+    (``tests/queue_cases.py``, standard library only)."""
+    lane_cases()  # puts tests/ on the path
+    import queue_cases as QC
+
+    return QC
+
+
+QUEUE_LOG_THREADS = 8  # threads building phase queue's WAL-backed logs
+
+
+def phase_queue(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
+    """Quorum queues on ``dev``: ``queue_phase`` of
+    ``tests/queue_cases.py`` at ``QUEUE_GROUPS`` fifo queues x 3 replicas on 3
+    started coordinators (the started wave loops, with phase loop's
+    election timeout, detector poll and tick and the coordinator's lane
+    deadline), WAL-backed under ``workdir``, commands in through one
+    ``deliver_many`` a wave with reply futures, deliveries to
+    per-consumer sinks on the coordinators' ``send_msg_cb``: two runs of
+    the waves on one cluster, every replica snapshotting at the release
+    cursor, the second with node 2 cut off and caught up by snapshot
+    install after the heal. No queue may lose its leader in the first
+    run. ``queue_cases.check`` holds each run (every acknowledged
+    enqueue delivered and settled once, in order, the requeued pair
+    first to B; the replies and deliveries equal to the machine's alone;
+    equal fingerprints on all replicas; every snapshot at or past the
+    cursor; the device's snapshot columns equal to the host's on every
+    node; every queue of node 2 caught up by an install from below the
+    snapshot); here also every step
+    is one step-kernel launch (launches equal to the coordinators'
+    ``steps - sub_steps`` and ``sub_steps``), no step reaches the plain
+    torch-op step, and ``quorum.cu`` never launches."""
+    QC = queue_cases()
+    card = lane_cases().Lane("ra_tpu_torch", dev)
+    plain = {"full": C.consensus_step_packed_scat_plain,
+             "sub": C.consensus_step_packed_sub_scat_plain}
+    plain_calls = {"full": 0, "sub": 0}
+
+    def counted(kind):
+        def call(*args):
+            plain_calls[kind] += 1
+            return plain[kind](*args)
+        return call
+
+    def launches():
+        return (S.LAUNCHES_FULL, S.LAUNCHES_SUB)
+
+    card.leaderboard.clear()
+    C.consensus_step_packed_scat_plain = counted("full")
+    C.consensus_step_packed_sub_scat_plain = counted("sub")
+    # the counts cover this phase's cluster only
+    S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
+    try:
+        out = QC.queue_phase(
+            card, workdir, QUEUE_GROUPS, seed=seed, probe=launches,
+            election_timeout_s=API_ELECTION_TIMEOUT_S, detector_poll_s=0.1,
+            tick_interval_s=1.0, log_threads=QUEUE_LOG_THREADS,
+            timeout_s=LOOP_SETTLE_TIMEOUT_S,
+            progress=lambda line: log(f"phase queue, {line}"))
+        torch.cuda.synchronize()
+    finally:
+        C.consensus_step_packed_scat_plain = plain["full"]
+        C.consensus_step_packed_sub_scat_plain = plain["sub"]
+    out["launches"] = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
+                       "quorum": C.quorum.LAUNCHES}
+    want = (sum(out["steps"]) - sum(out["sub_steps"]), sum(out["sub_steps"]))
+    if (out["launches"]["full"], out["launches"]["sub"]) != want:
+        raise AssertionError(
+            f"phase queue: launches {out['launches']} != steps {want[0]} "
+            f"full, {want[1]} sub")
+    if out["launches"]["quorum"]:
+        raise AssertionError("phase queue: quorum.cu launched")
+    if any(plain_calls.values()):
+        raise AssertionError(f"phase queue: the plain step ran {plain_calls}")
+    return out
+
+
+def queue_line(kq: dict, card: str) -> str:
+    """Phase queue's measures, the per-queue records left out."""
+    runs = []
+    for r in kq["runs"]:
+        run = {
+            "waves": r["waves"],
+            "cursor": [min(r["cursor"]), max(r["cursor"])],
+            "snapshots_written_by_node": r["snapshot_writes"],
+            "snapshot_write_s_by_node": r["snapshot_write_s"],
+            "first_index_by_node": [[min(f), max(f)]
+                                    for f in r["first_index"]],
+        }
+        if "installs" in r:
+            run["catch_up"] = {
+                "caught_up_s": r["caught_up_s"],
+                "caught_up_quantiles_s": r["caught_up_quantiles_s"],
+                "installs": sum(r["installs"]),
+                "threads_before": r["threads_before"],
+                "peak_threads": r["peak_threads"],
+                "rss_before": r["rss_before"], "peak_rss": r["peak_rss"],
+                "counters_by_node": r["counters"]}
+        runs.append(run)
+    p0, p1 = kq["probes"]
+    return (
+        f"{QUEUE_GROUPS} queues x 3 replicas, WAL-backed, started loops: set-up "
+        f"{kq['set_up_s']:.3f} s, election {kq['election_s']:.3f} s, tear-"
+        f"down {kq['tear_down_s']:.3f} s; no queue moved its leader off "
+        f"node 0 in run 0; runs (the second with node 2 cut off, then "
+        f"caught up) {json.dumps(runs)}; every "
+        f"acknowledged enqueue delivered and settled once, in order, the "
+        f"requeued pair first to B; replies and deliveries equal to the "
+        f"fifo machine's alone; fingerprints equal on all 3 replicas; "
+        f"snapshots at the cursor; device snapshot columns == host on "
+        f"every node; every queue of node 2 caught up by an install; "
+        f"launches "
+        f"step_full {p1[0] - p0[0]}, step_sub {p1[1] - p0[1]} == steps "
+        f"{kq['steps']} (sub {kq['sub_steps']}); launches in the phase "
+        f"{kq['launches']}; {kq['wall_s']:.2f} s | {card}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--switch-interval", type=float, default=None)
     ap.add_argument("--seed", type=int, default=12,
-                    help="seed of phase loop (d)'s command values")
+                    help="seed of phase loop (d)'s command values and of "
+                         "phase queue's payloads")
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be at least 1")
@@ -2182,13 +2385,14 @@ def main(argv=None) -> int:
             t = time.perf_counter()
             workdir = tempfile.mkdtemp(prefix="ra_smoke_")
             try:
-                r = phase_main(torch, C, S, dev, workdir, tag, use_kernels)
+                r = phase_main(torch, C, S, dev, workdir, tag, use_kernels,
+                               groups=GROUPS if use_kernels else CUT_GROUPS)
             finally:
-                shutil.rmtree(workdir, ignore_errors=True)
+                remove_later(workdir)
             runs.append((use_kernels, r))
             log(f"phase main, round {rnd + 1} of {args.rounds} "
                 f"({'step kernels' if use_kernels else 'plain step, for comparison'}): "
-                f"{GROUPS} groups x 3 replicas, WAL-backed: "
+                f"{r['groups']} groups x 3 replicas, WAL-backed: "
                 f"{main_line(r, card)} | {time.perf_counter() - t:.2f} s")
     if args.rounds > 1:
         for use_kernels in (True, False):
@@ -2204,7 +2408,7 @@ def main(argv=None) -> int:
     try:
         ka = phase_api(torch, C, S, dev, workdir)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        remove_later(workdir)
     log(f"phase api: {api_line(ka, card)} | {time.perf_counter() - t:.2f} s")
 
     # phase 6: the fault-injection harnesses and the linearizability
@@ -2214,21 +2418,6 @@ def main(argv=None) -> int:
     log(f"phase harness: {harness_line(kh, card)} | "
         f"{time.perf_counter() - t:.2f} s")
 
-    # phase 7: the port's bench and operator tools, each in a process of
-    # its own (within one process the first run of a pair is faster)
-    t = time.perf_counter()
-    kb = phase_bench(torch, C, S, dev)
-    for label, res in kb["benches"].items():
-        log(f"phase bench, {label} ({kb['seconds'][label]:.2f} s): "
-            f"{json.dumps(res)} | {card}")
-    for label, res in kb["tools"].items():
-        log(f"phase bench, {label}: {json.dumps(res)} | {card}")
-    log(f"phase bench: decision loop at G={GROUPS}, "
-        f"{kb['decisions_check']['steps']} steps: step kernel == plain step "
-        f"in every state field and success sum (max_abs_err "
-        f"{kb['decisions_check']['max_abs_err']}) | "
-        f"{time.perf_counter() - t:.2f} s")
-
     # phase 8: the multi-device path (a coordinator's groups in slices,
     # all on this card) and the graft entry
     t = time.perf_counter()
@@ -2236,7 +2425,7 @@ def main(argv=None) -> int:
     try:
         kx = phase_mesh(torch, C, S, dev, workdir)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        remove_later(workdir)
     log(f"phase mesh: {mesh_line(kx, card)} | {time.perf_counter() - t:.2f} s")
 
     # phase 9: the command-lane scenarios, the watchdog and the native
@@ -2253,11 +2442,45 @@ def main(argv=None) -> int:
     try:
         kp = phase_loop(torch, C, S, dev, workdir, args.seed)
     finally:
-        shutil.rmtree(workdir, ignore_errors=True)
+        remove_later(workdir)
     log(f"phase loop: {loop_line(kp, card)} | "
         f"{time.perf_counter() - t:.2f} s")
     log(f"phase loop (d), the leader node's failure on (b)'s {GROUPS} groups "
         f"x 3 replicas: {failover_line(kp['flip_soak_full']['then'], card)}")
+
+    # phase 11: quorum queues (the fifo machine), with
+    # release-cursor snapshots and a follower's catch-up by install
+    t = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="ra_smoke_queue_")
+    fs = fs_type(workdir)
+    try:
+        kqq = phase_queue(torch, C, S, dev, workdir, args.seed)
+    finally:
+        remove_later(workdir)
+    log(f"phase queue: logs on {fs} ({os.path.dirname(workdir)}): "
+        f"{queue_line(kqq, card)} | {time.perf_counter() - t:.2f} s")
+
+    # phase 7 (last): the port's bench and operator tools, each in a
+    # process of its own (within one process the first run of a pair is
+    # faster)
+    t = time.perf_counter()
+    kb = phase_bench(torch, C, S, dev)
+    for label, res in kb["benches"].items():
+        log(f"phase bench, {label} ({kb['seconds'][label]:.2f} s): "
+            f"{json.dumps(res)} | {card}")
+    for label, res in kb["tools"].items():
+        log(f"phase bench, {label}: {json.dumps(res)} | {card}")
+    log(f"phase bench: decision loop at G={GROUPS}, "
+        f"{kb['decisions_check']['steps']} steps: step kernel == plain step "
+        f"in every state field and success sum (max_abs_err "
+        f"{kb['decisions_check']['max_abs_err']}) | "
+        f"{time.perf_counter() - t:.2f} s")
+
+    t = time.perf_counter()
+    n_removed = len(REMOVALS)
+    wait_removals()
+    log(f"removal of the {n_removed} cluster directories, waited "
+        f"{time.perf_counter() - t:.2f} s")
 
     log(f"total {time.perf_counter() - t_all:.2f} s")
 
@@ -2270,7 +2493,8 @@ def main(argv=None) -> int:
                 "bench": bench_launches(kb, kind),
                 "mesh": kx["launches"]["phase"][kind],
                 "lane": kl["launches"][kind],
-                "loop": kp["launches"][kind]}
+                "loop": kp["launches"][kind],
+                "queue": kqq["launches"][kind]}
 
     log(json.dumps({"kernels": [{
         "name": "quorum_scan",
@@ -2311,4 +2535,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        wait_removals()

@@ -99,7 +99,11 @@ class SpscRing:
         return n
 
     def __len__(self) -> int:
-        return int(self._idx[_PAD]) - int(self._idx[0])
+        # head before tail: both only grow and head never passes tail,
+        # so a consumer that pops between the two reads cannot make the
+        # difference negative (tail first could, and len() then raises)
+        h = int(self._idx[0])
+        return int(self._idx[_PAD]) - h
 
 
 class WaitGate:

@@ -64,7 +64,9 @@ from ra_tpu_torch import faults
 from ra_tpu_torch import leaderboard
 from ra_tpu_torch import native as _native
 from ra_tpu_torch.log.api import LogApi
+from ra_tpu_torch.log.log import Log
 from ra_tpu_torch.log.memory import MemoryLog
+from ra_tpu_torch.log.snapshot import SNAPSHOT
 from ra_tpu_torch.machine import Machine, normalize_apply_result
 from ra_tpu_torch.ops import consensus as C
 from ra_tpu_torch.runtime.device import DeviceSeam, ShardedSeam
@@ -95,6 +97,7 @@ from ra_tpu_torch.protocol import (
     RC_CMDS_LOW,
     RC_MSG,
     REJECT_NOSPACE,
+    SnapshotMeta,
     REJECT_OVERLOADED,
     PreVoteResult,
     PreVoteRpc,
@@ -287,6 +290,54 @@ class GroupHost:
         if 0 <= slot < len(self.members):
             return self.members[slot]
         return None
+
+
+class _ThreadPool:
+    """``n`` daemon threads running submitted callables in order,
+    started at the first ``submit``; ``close()`` drops the callables
+    not yet started (a running one finishes on its own)."""
+
+    def __init__(self, n: int, name: str) -> None:
+        self._n = n
+        self._name = name
+        self._jobs: deque = deque()
+        self._cv = threading.Condition()
+        self._threads: List[threading.Thread] = []
+        self._closed = False
+
+    def submit(self, fn: Callable[[], Any]) -> bool:
+        """Queue ``fn``; False (and nothing queued) once closed."""
+        with self._cv:
+            if self._closed:
+                return False
+            self._jobs.append(fn)
+            if not self._threads:
+                for i in range(self._n):
+                    t = threading.Thread(target=self._run, daemon=True,
+                                         name=f"{self._name}-{i}")
+                    t.start()
+                    self._threads.append(t)
+            self._cv.notify()
+        return True
+
+    def _run(self) -> None:
+        while True:
+            with self._cv:
+                while not self._jobs and not self._closed:
+                    self._cv.wait()
+                if self._closed:
+                    return
+                fn = self._jobs.popleft()
+            try:
+                fn()
+            except Exception:  # noqa: BLE001
+                logger.exception("%s: job crashed", self._name)
+
+    def close(self) -> None:
+        with self._cv:
+            self._closed = True
+            self._jobs.clear()
+            self._cv.notify_all()
 
 
 class BatchCoordinator:
@@ -540,6 +591,10 @@ class BatchCoordinator:
         # guards self.state (donated buffers!) between the step thread and
         # add_group callers
         self._state_lock = threading.Lock()
+        # snapshot installs a rare-message pass writes to the device at
+        # its end, by gid (None outside a pass): one scatter for the
+        # pass, not three a group
+        self._install_rows: Optional[Dict[int, Tuple[int, ...]]] = None
 
         self.registry = nodes or node_registry()
         self.transport = InProcTransport(node_name, self.registry)
@@ -583,6 +638,20 @@ class BatchCoordinator:
         # followed group started thousands at full width
         self._down_timers: Optional[TimerService] = None
         self._down_lock = threading.Lock()
+        # snapshot threads (the reference streams a transfer on a thread
+        # of its own and writes a release cursor's snapshot inline on the
+        # apply path: at 10240 queues x 3 the first started thousands of
+        # threads and the second held a node's step for minutes):
+        # transfers run on a bounded pool, release-cursor snapshots on
+        # writer threads, each started at its first job, closed by stop()
+        self._snap_send = _ThreadPool(self.SNAPSHOT_SENDERS,
+                                      f"ra-snap-send-{node_name}")
+        self._snap_cv = threading.Condition()
+        self._snap_jobs: Dict[int, Tuple] = {}  # gid -> (g, meta, state)
+        self._snap_busy: set = set()  # gids being written
+        self._snap_due: Dict[int, int] = {}  # gid -> newest index handed out
+        self._snap_writers: List[threading.Thread] = []
+        self._snap_closed = False
         self._started = False
 
     # -- node-registry interface (same duck type as RaNode) ---------------
@@ -888,6 +957,12 @@ class BatchCoordinator:
             timers, self._down_timers = self._down_timers, None
         if timers is not None:
             timers.close()  # triggers not yet due are dropped
+        self._snap_send.close()  # transfers not yet started are dropped
+        with self._snap_cv:
+            self._snap_closed = True
+            self._snap_cv.notify_all()
+        for t in self._snap_writers:
+            t.join(timeout=30)  # the snapshots handed out are written
         from ra_tpu_torch import counters as _counters
         from ra_tpu_torch import health as _health
 
@@ -1890,7 +1965,13 @@ class BatchCoordinator:
         # overflow was shed as lossy traffic, wedging the un-retried
         # tail of the storm (caught by the 10240-group bench election)
         rare_out: Dict[str, List] = {}
+        self._install_rows = {}
         for g, msg, from_sid in ticket.rare:
+            if g.gid in self._install_rows:
+                # a group's deferred install rows land before its next
+                # message is handled
+                self._flush_install_rows()
+                self._install_rows = {}
             # crash isolation for the slow paths (snapshot transfer
             # decode of untrusted bytes, membership, queries): a
             # poisoned message must not kill the step thread — every
@@ -1904,6 +1985,7 @@ class BatchCoordinator:
                     "%s after handler crash", self.name, type(msg).__name__,
                     g.name,
                 )
+        self._flush_install_rows()
         for node_name, msgs in rare_out.items():
             self._send_batch(node_name, msgs)
         _t_eg = time.perf_counter_ns()
@@ -3221,6 +3303,8 @@ class BatchCoordinator:
                 continue
             if isinstance(eff, fx.ReleaseCursor):
                 mac = g.machine.which_module(g.effective_machine_version)
+                if self._release_cursor_async(g, eff, mac):
+                    continue
                 g.log.update_release_cursor(
                     eff.index,
                     tuple(m for m in g.members if m is not None),
@@ -3292,6 +3376,144 @@ class BatchCoordinator:
             self.state = self._dev.record_snapshot(
                 self.state, [g.gid], [snap[0]], [snap[1]]
             )
+
+    def _flush_install_rows(self) -> None:
+        """Write a rare-message pass's snapshot installs to the device:
+        the floors, then the terms, then leader and role, each one
+        scatter for the pass (rows of different groups, each written in
+        an install's own order), and close the pass. A failed write is
+        dropped as the rare loop drops a crashed message: the step
+        thread lives on."""
+        rows, self._install_rows = self._install_rows, None
+        if not rows:
+            return
+        gids = list(rows)
+        idx, term, cur, slot = (list(v) for v in zip(*rows.values()))
+        dev = self._dev
+        try:
+            self.state = dev.record_snapshot(self.state, gids, idx, term)
+            self.state = dev.max_rows(self.state, gids, current_term=cur)
+            self.state = dev.set_rows(self.state, gids, leader_slot=slot,
+                                      role=C.R_FOLLOWER)
+        except Exception:  # noqa: BLE001
+            logger.exception(
+                "coordinator %s: dropping the device rows of %d snapshot "
+                "installs after a crash", self.name, len(gids))
+
+    # -- release-cursor snapshots off the apply path ---------------------
+
+    SNAPSHOT_WRITERS = 4  # writer threads a coordinator
+    SNAPSHOT_WRITE_BATCH = 64  # snapshots a writer posts under one lock
+    SNAPSHOT_SENDERS = 32  # transfers streaming at once, a coordinator
+
+    def _release_cursor_async(self, g: GroupHost, eff, mac) -> bool:
+        """Hand a release cursor's snapshot of a WAL-backed log to the
+        writer threads; False (the caller snapshots inline) for other
+        logs and once stop() has begun. The snapshot is due as in
+        ``Log.update_release_cursor``, counted from the newest one
+        handed out; the state is copied here, so later applies cannot
+        change what is written. A writer writes it, then under the
+        state lock sets the device's floor and the host's and compacts
+        the log (``_snapshots_written``)."""
+        log = g.log
+        if not isinstance(log, Log):
+            return False
+        with self._snap_cv:
+            if self._snap_closed:
+                return False
+            snap = log.snapshot_index_term()
+            cur = max(snap[0] if snap else 0, self._snap_due.get(g.gid, 0))
+            idx = eff.index
+            if idx <= cur or idx - cur < log.min_snapshot_interval:
+                return True
+            term = log.fetch_term(idx)
+            if term is None:
+                return True
+            meta = SnapshotMeta(
+                index=idx, term=term,
+                cluster=tuple(m for m in g.members if m is not None),
+                machine_version=g.effective_machine_version,
+                live_indexes=tuple(i for i in mac.live_indexes(
+                    eff.machine_state) if i <= idx),
+            )
+            state = pickle.loads(pickle.dumps(eff.machine_state,
+                                              pickle.HIGHEST_PROTOCOL))
+            self._snap_due[g.gid] = idx
+            self._snap_jobs[g.gid] = (g, meta, state)  # newest replaces
+            if not self._snap_writers:
+                for i in range(self.SNAPSHOT_WRITERS):
+                    t = threading.Thread(
+                        target=self._snapshot_writer, daemon=True,
+                        name=f"ra-snap-write-{self.name}-{i}")
+                    t.start()
+                    self._snap_writers.append(t)
+            self._snap_cv.notify()
+        return True
+
+    def _snapshot_writer(self) -> None:
+        """A writer thread: takes up to ``SNAPSHOT_WRITE_BATCH`` groups
+        no other writer holds, writes their snapshots outside every
+        lock, then posts them under the state lock. After stop() it
+        writes what was handed out, then ends."""
+        cv = self._snap_cv
+        while True:
+            with cv:
+                while True:
+                    batch = []
+                    for gid, job in self._snap_jobs.items():
+                        if gid not in self._snap_busy:
+                            batch.append(job)
+                            if len(batch) == self.SNAPSHOT_WRITE_BATCH:
+                                break
+                    if batch:
+                        break
+                    if self._snap_closed and not self._snap_jobs:
+                        return
+                    cv.wait()
+                for g, _meta, _state in batch:
+                    del self._snap_jobs[g.gid]
+                    self._snap_busy.add(g.gid)
+            done = []
+            for g, meta, state in batch:
+                try:
+                    g.log.snapshots.write(meta, state, kind=SNAPSHOT)
+                    done.append((g, meta))
+                except Exception:  # noqa: BLE001
+                    # as a failed inline write: no snapshot, the log
+                    # stays whole, the next release cursor tries again
+                    logger.exception(
+                        "coordinator %s: snapshot of group %s at %d failed",
+                        self.name, g.name, meta.index)
+            with self._state_lock:
+                self._snapshots_written(done)
+            with cv:
+                for g, _meta, _state in batch:
+                    self._snap_busy.discard(g.gid)
+                    if g.gid not in self._snap_jobs:
+                        self._snap_due.pop(g.gid, None)
+                cv.notify_all()
+
+    def _snapshots_written(self, done) -> None:
+        """Post written snapshots (under the state lock): the device's
+        floors in one ``record_snapshot``, then each log's snapshot and
+        compaction, so a reader that sees the log's snapshot sees the
+        device's floor. A snapshot an install has overtaken, or of a
+        group no longer here, is not posted."""
+        posted = []
+        for g, meta in done:
+            snap = g.log.snapshot_index_term()
+            if self.groups[g.gid] is g and (snap is None
+                                            or meta.index > snap[0]):
+                posted.append((g, meta))
+        rows = [(g.gid, m.index, m.term) for g, m in posted
+                if m.index > g.snap_floor]
+        if rows:
+            gids, idx, term = (list(v) for v in zip(*rows))
+            self.state = self._dev.record_snapshot(self.state, gids, idx,
+                                                   term)
+        for g, meta in posted:
+            g.snap_floor = max(g.snap_floor, meta.index)
+            g.log._post_snapshot(meta)
 
     def _machine_timer(self, g: GroupHost, eff: fx.Timer) -> None:
         old = g.machine_timers.pop(eff.name, None)
@@ -4335,14 +4557,9 @@ class BatchCoordinator:
             "snapshot_install", node=self.name, group=g.name, term=g.term,
             detail=f"installed at index {meta.index} (term {meta.term})",
         )
-        dev = self._dev
-        self.state = dev.record_snapshot(
-            self.state, [g.gid], [meta.index], [meta.term]
-        )
-        self.state = dev.max_rows(self.state, g.gid, current_term=msg.term)
-        self.state = dev.set_rows(
-            self.state, g.gid, leader_slot=g.leader_slot, role=C.R_FOLLOWER,
-        )
+        # written at the rare-message pass's end
+        self._install_rows[g.gid] = (meta.index, meta.term, msg.term,
+                                     g.leader_slot)
         send_one(InstallSnapshotResult(g.term, meta.index, meta.term))
 
     class _SenderShim:
@@ -4397,7 +4614,8 @@ class BatchCoordinator:
             chunk_size, chunk_iter=chunk_iter,
         )
         g.snap_senders[to] = sender
-        sender.start()
+        if not self._snap_send.submit(sender._run):
+            g.snap_senders.pop(to, None)  # stopped
 
     # -- failure detection -------------------------------------------------
 

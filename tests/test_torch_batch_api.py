@@ -427,19 +427,21 @@ class _Spy:
     def __init__(self, pkg, monkeypatch):
         self.accept_sizes, self.sender_streamed = [], []
         accept = pkg.snapshot.ChunkAccept.accept_chunk
-        start = pkg.proc.SnapshotSender.start
+        run = pkg.proc.SnapshotSender._run
         spy = self
 
         def spy_accept(self_, data):
             spy.accept_sizes.append(len(data))
             return accept(self_, data)
 
-        def spy_start(self_):
+        # the transfer's body, whichever thread runs it (the reference
+        # starts a thread a transfer, the port runs it on a bounded pool)
+        def spy_run(self_):
             spy.sender_streamed.append(self_.chunk_iter is not None)
-            return start(self_)
+            return run(self_)
 
         monkeypatch.setattr(pkg.snapshot.ChunkAccept, "accept_chunk", spy_accept)
-        monkeypatch.setattr(pkg.proc.SnapshotSender, "start", spy_start)
+        monkeypatch.setattr(pkg.proc.SnapshotSender, "_run", spy_run)
 
 
 def streamed_snapshot(pkg, tmp, monkeypatch):

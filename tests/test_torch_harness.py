@@ -4,7 +4,8 @@ on the CPU.
 ``ra_tpu_torch.kv_harness.run`` runs at the tier-1 seeds of the JAX
 package's harness tests, with their op counts, timeouts and assertions
 (``tests/test_kv_harness.py``, ``tests/test_soak.py``); the batch
-backend's coordinators run on ``device="cpu"``. The runs are wall-clock
+backend's coordinators run on ``device="cpu"``. The fifo workload on the
+batch backend runs on both packages at the soak's seeds. The runs are wall-clock
 driven, so each package is held to the assertions, not to the other
 package's op counts. The lease and disk-full seeds are in
 ``tests/test_torch_harness_faults.py``.
@@ -67,6 +68,22 @@ def test_combined_smoke_batch_native_off_on_port():
     res = port_harness.run(seed=3, n_ops=60, combined=True, native="off",
                            **BATCH)
     assert res.consistent, res.failures
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_fifo_harness_batch_backend_on_both_packages(seed):
+    """The fifo machine (quorum queues) on the batch backend, at
+    ``tests/test_soak.py``'s seeds: partitions and membership churn
+    under enqueue/checkout/settle/return/down traffic. Each package's
+    run is consistent: the checker found no acknowledged enqueue lost,
+    none applied twice (a payload under two msg_ids), the final drain
+    emptied the queue and a release cursor snapshotted a replica."""
+    for harness, kw in ((ref_harness, {}), (port_harness, BATCH)):
+        kw = dict(kw, backend="tpu_batch")
+        res = harness.run(seed=seed, n_ops=40, workload="fifo", **kw)
+        assert res.consistent, (harness.__name__, res.failures)
+        assert not res.failures
+        assert res.ops.get("fifo_settled", 0) > 0, (harness.__name__, res.ops)
 
 
 def test_kv_harness_actor_backend_randomized_on_port():

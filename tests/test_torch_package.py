@@ -81,6 +81,21 @@ EDITED_LINES = {
         "        return so\n    except Exception as e:  # noqa: BLE001\n"
         "        if os.path.exists(tmp):\n            os.unlink(tmp)\n",
     )],
+    # a lane's length read head before tail: the egress thread asks
+    # whether any lane is pending while the step thread drains it, and
+    # reading the tail first lets a drain in between make the length
+    # negative, so len() raises and the egress thread dies (found at
+    # 10240 queues x 3 on the card; tests/test_torch_queue.py shows it)
+    "rings.py": [(
+        "    def __len__(self) -> int:\n"
+        "        return int(self._idx[_PAD]) - int(self._idx[0])\n",
+        "    def __len__(self) -> int:\n"
+        "        # head before tail: both only grow and head never passes tail,\n"
+        "        # so a consumer that pops between the two reads cannot make the\n"
+        "        # difference negative (tail first could, and len() then raises)\n"
+        "        h = int(self._idx[0])\n"
+        "        return int(self._idx[_PAD]) - h\n",
+    )],
     "lease.py": [(
         "# Test-only failpoint (PR-8 style, see models/fifo.py",
         "# Test-only failpoint (in the style of models/fifo.py",
@@ -587,6 +602,24 @@ COORD_EDITED_LINES = [
         "        # a build hands out one buffer (pinned on CUDA) for upload; the\n"
         "        # buffer returns to the pool only after that step's egress sync\n"
         "        # (DeviceSeam.realise) proves the device consumed it. The\n"),
+    # snapshot installs written once a pass: at full width (10240
+    # queues x 3 on the card) the reference's three scatters an install,
+    # each a few dozen small device calls under the interpreter lock,
+    # cost milliseconds a group. A rare-message pass's installs go to
+    # the device in one call a field at the pass's end (a group's rows
+    # before its next message), which equals the reference's calls in
+    # order: the rows are distinct groups' and nothing reads them in
+    # between (tests/test_torch_queue.py holds the rows against the
+    # reference)
+    (
+        "        # add_group callers\n"
+        "        self._state_lock = threading.Lock()\n",
+        "        # add_group callers\n"
+        "        self._state_lock = threading.Lock()\n"
+        "        # snapshot installs a rare-message pass writes to the device at\n"
+        "        # its end, by gid (None outside a pass): one scatter for the\n"
+        "        # pass, not three a group\n"
+        "        self._install_rows: Optional[Dict[int, Tuple[int, ...]]] = None\n"),
     # the node-down triggers share one timer thread a coordinator
     # (the reference starts a threading.Timer a followed group:
     # 10240 threads a survivor at full width), made lazily under a lock
@@ -849,6 +882,25 @@ COORD_EDITED_LINES = [
         "        _t_pack = time.perf_counter_ns()\n"
         "        # dispatch is ASYNC: eg_packed is an in-flight device value; the\n"
         "        # ticket's realisation half syncs it (DeviceSeam.realise) and processes\n"),
+    (
+        "        rare_out: Dict[str, List] = {}\n"
+        "        for g, msg, from_sid in ticket.rare:\n",
+        "        rare_out: Dict[str, List] = {}\n"
+        "        self._install_rows = {}\n"
+        "        for g, msg, from_sid in ticket.rare:\n"
+        "            if g.gid in self._install_rows:\n"
+        "                # a group's deferred install rows land before its next\n"
+        "                # message is handled\n"
+        "                self._flush_install_rows()\n"
+        "                self._install_rows = {}\n"),
+    (
+        "                    g.name,\n"
+        "                )\n"
+        "        for node_name, msgs in rare_out.items():\n",
+        "                    g.name,\n"
+        "                )\n"
+        "        self._flush_install_rows()\n"
+        "        for node_name, msgs in rare_out.items():\n"),
     # the scatter pads stay (both packages scatter the same rows) but
     # no shapes are compiled; host columns go to the seam
     (
@@ -898,6 +950,28 @@ COORD_EDITED_LINES = [
         "                jnp.asarray([snap[1]], jnp.int32),\n",
         "            self.state = self._dev.record_snapshot(\n"
         "                self.state, [g.gid], [snap[0]], [snap[1]]\n"),
+    (
+        "            )\n"
+        "\n"
+        "    def _machine_timer(self, g: GroupHost, eff: fx.Timer) -> None:\n",
+        "            )\n"
+        "\n"
+        "    def _flush_install_rows(self) -> None:\n"
+        "        \"\"\"Write a rare-message pass's snapshot installs to the device:\n"
+        "        the floors, then the terms, then leader and role, each one\n"
+        "        scatter for the pass (rows of different groups, each written in\n"
+        "        an install's own order), and close the pass.\"\"\"\n"
+        "        rows, self._install_rows = self._install_rows, None\n"
+        "        if rows:\n"
+        "            gids = list(rows)\n"
+        "            idx, term, cur, slot = (list(v) for v in zip(*rows.values()))\n"
+        "            dev = self._dev\n"
+        "            self.state = dev.record_snapshot(self.state, gids, idx, term)\n"
+        "            self.state = dev.max_rows(self.state, gids, current_term=cur)\n"
+        "            self.state = dev.set_rows(self.state, gids, leader_slot=slot,\n"
+        "                                      role=C.R_FOLLOWER)\n"
+        "\n"
+        "    def _machine_timer(self, g: GroupHost, eff: fx.Timer) -> None:\n"),
     (
         "            self.state = C.force_elections(\n"
         "                self.state, jnp.asarray([g.gid], jnp.int32)\n"
@@ -952,13 +1026,13 @@ COORD_EDITED_LINES = [
         "            current_term=self.state.current_term.at[g.gid].max(msg.term),\n"
         "            leader_slot=self.state.leader_slot.at[g.gid].set(g.leader_slot),\n"
         "            role=self.state.role.at[g.gid].set(C.R_FOLLOWER),\n",
-        "        dev = self._dev\n"
-        "        self.state = dev.record_snapshot(\n"
-        "            self.state, [g.gid], [meta.index], [meta.term]\n"
+        "        # written at the rare-message pass's end\n"
+        "        self._install_rows[g.gid] = (meta.index, meta.term, msg.term,\n"
+        "                                     g.leader_slot)\n"),
+    (
         "        )\n"
-        "        self.state = dev.max_rows(self.state, g.gid, current_term=msg.term)\n"
-        "        self.state = dev.set_rows(\n"
-        "            self.state, g.gid, leader_slot=g.leader_slot, role=C.R_FOLLOWER,\n"),
+        "        send_one(InstallSnapshotResult(g.term, meta.index, meta.term))\n",
+        "        send_one(InstallSnapshotResult(g.term, meta.index, meta.term))\n"),
     # the health scan's fetch: torch state is never donated, so a
     # reference taken under the lock needs no device copies; one
     # read_fields fetch over every slice
@@ -1023,6 +1097,287 @@ COORD_EDITED_LINES = [
         "            if self._down_timers is None and self.running:\n"
         "                self._down_timers = TimerService()\n"
         "            return self._down_timers\n"),
+    # the release-cursor snapshot's meta and store kind, for the writers
+    (
+        "from ra_tpu_torch.log.api import LogApi\n"
+        "from ra_tpu_torch.log.memory import MemoryLog\n",
+        "from ra_tpu_torch.log.api import LogApi\n"
+        "from ra_tpu_torch.log.log import Log\n"
+        "from ra_tpu_torch.log.memory import MemoryLog\n"
+        "from ra_tpu_torch.log.snapshot import SNAPSHOT\n"),
+    (
+        "    RC_MSG,\n"
+        "    REJECT_NOSPACE,\n",
+        "    RC_MSG,\n"
+        "    REJECT_NOSPACE,\n"
+        "    SnapshotMeta,\n"),
+    # snapshot transfers on a bounded pool a coordinator, release-cursor
+    # snapshots off the apply path on writer threads. The reference
+    # starts a SnapshotSender thread a transfer: 10240 at once after a
+    # follower's heal (10240 queues x 3 on the card) climbed to 3990
+    # threads with no install done in 50 s, and the process was killed.
+    # It writes a release cursor's snapshot inline on the apply path,
+    # under the state lock: one wave's 10240 writes held a node's next
+    # step (so its heartbeats) for 15-406 s. The pool runs the same
+    # SnapshotSender transfer; a writer writes the same snapshot (due as
+    # Log.update_release_cursor has it, of a copy of the state taken on
+    # the apply path), then under the state lock sets the device's and
+    # the host's floor and compacts the log as Log._take_snapshot does.
+    # Records equal the reference's once the writes are done
+    # (tests/test_torch_queue.py holds both, and the thread bound)
+    (
+        "        return None\n"
+        "\n"
+        "\n"
+        "class BatchCoordinator:",
+        "        return None\n"
+        "\n"
+        "\n"
+        "class _ThreadPool:\n"
+        '    """``n`` daemon threads running submitted callables in order,\n'
+        "    started at the first ``submit``; ``close()`` drops the callables\n"
+        '    not yet started (a running one finishes on its own)."""\n'
+        "\n"
+        "    def __init__(self, n: int, name: str) -> None:\n"
+        "        self._n = n\n"
+        "        self._name = name\n"
+        "        self._jobs: deque = deque()\n"
+        "        self._cv = threading.Condition()\n"
+        "        self._threads: List[threading.Thread] = []\n"
+        "        self._closed = False\n"
+        "\n"
+        "    def submit(self, fn: Callable[[], Any]) -> bool:\n"
+        '        """Queue ``fn``; False (and nothing queued) once closed."""\n'
+        "        with self._cv:\n"
+        "            if self._closed:\n"
+        "                return False\n"
+        "            self._jobs.append(fn)\n"
+        "            if not self._threads:\n"
+        "                for i in range(self._n):\n"
+        "                    t = threading.Thread(target=self._run, daemon=True,\n"
+        '                                         name=f"{self._name}-{i}")\n'
+        "                    t.start()\n"
+        "                    self._threads.append(t)\n"
+        "            self._cv.notify()\n"
+        "        return True\n"
+        "\n"
+        "    def _run(self) -> None:\n"
+        "        while True:\n"
+        "            with self._cv:\n"
+        "                while not self._jobs and not self._closed:\n"
+        "                    self._cv.wait()\n"
+        "                if self._closed:\n"
+        "                    return\n"
+        "                fn = self._jobs.popleft()\n"
+        "            try:\n"
+        "                fn()\n"
+        "            except Exception:  # noqa: BLE001\n"
+        '                logger.exception("%s: job crashed", self._name)\n'
+        "\n"
+        "    def close(self) -> None:\n"
+        "        with self._cv:\n"
+        "            self._closed = True\n"
+        "            self._jobs.clear()\n"
+        "            self._cv.notify_all()\n"
+        "\n"
+        "\n"
+        "class BatchCoordinator:"),
+    (
+        "        self._down_lock = threading.Lock()\n"
+        "        self._started = False\n",
+        "        self._down_lock = threading.Lock()\n"
+        "        # snapshot threads (the reference streams a transfer on a thread\n"
+        "        # of its own and writes a release cursor's snapshot inline on the\n"
+        "        # apply path: at 10240 queues x 3 the first started thousands of\n"
+        "        # threads and the second held a node's step for minutes):\n"
+        "        # transfers run on a bounded pool, release-cursor snapshots on\n"
+        "        # writer threads, each started at its first job, closed by stop()\n"
+        "        self._snap_send = _ThreadPool(self.SNAPSHOT_SENDERS,\n"
+        '                                      f"ra-snap-send-{node_name}")\n'
+        "        self._snap_cv = threading.Condition()\n"
+        "        self._snap_jobs: Dict[int, Tuple] = {}  # gid -> (g, meta, state)\n"
+        "        self._snap_busy: set = set()  # gids being written\n"
+        "        self._snap_due: Dict[int, int] = {}  # gid -> newest index handed out\n"
+        "        self._snap_writers: List[threading.Thread] = []\n"
+        "        self._snap_closed = False\n"
+        "        self._started = False\n"),
+    (
+        "            timers.close()  # triggers not yet due are dropped\n",
+        "            timers.close()  # triggers not yet due are dropped\n"
+        "        self._snap_send.close()  # transfers not yet started are dropped\n"
+        "        with self._snap_cv:\n"
+        "            self._snap_closed = True\n"
+        "            self._snap_cv.notify_all()\n"
+        "        for t in self._snap_writers:\n"
+        "            t.join(timeout=30)  # the snapshots handed out are written\n"),
+    (
+        "                mac = g.machine.which_module(g.effective_machine_version)\n"
+        "                g.log.update_release_cursor(",
+        "                mac = g.machine.which_module(g.effective_machine_version)\n"
+        "                if self._release_cursor_async(g, eff, mac):\n"
+        "                    continue\n"
+        "                g.log.update_release_cursor("),
+    (
+        "        g.snap_senders[to] = sender\n"
+        "        sender.start()\n",
+        "        g.snap_senders[to] = sender\n"
+        "        if not self._snap_send.submit(sender._run):\n"
+        "            g.snap_senders.pop(to, None)  # stopped\n"),
+    # a pass's install rows that fail to reach the device are dropped as
+    # the rare loop drops a message whose handler crashed: the step
+    # thread lives on
+    (
+        "    def _flush_install_rows(self) -> None:\n"
+        '        """Write a rare-message pass\'s snapshot installs to the device:\n'
+        "        the floors, then the terms, then leader and role, each one\n"
+        "        scatter for the pass (rows of different groups, each written in\n"
+        '        an install\'s own order), and close the pass."""\n'
+        "        rows, self._install_rows = self._install_rows, None\n"
+        "        if rows:\n"
+        "            gids = list(rows)\n"
+        "            idx, term, cur, slot = (list(v) for v in zip(*rows.values()))\n"
+        "            dev = self._dev\n"
+        "            self.state = dev.record_snapshot(self.state, gids, idx, term)\n"
+        "            self.state = dev.max_rows(self.state, gids, current_term=cur)\n"
+        "            self.state = dev.set_rows(self.state, gids, leader_slot=slot,\n"
+        "                                      role=C.R_FOLLOWER)\n",
+        "    def _flush_install_rows(self) -> None:\n"
+        '        """Write a rare-message pass\'s snapshot installs to the device:\n'
+        "        the floors, then the terms, then leader and role, each one\n"
+        "        scatter for the pass (rows of different groups, each written in\n"
+        "        an install's own order), and close the pass. A failed write is\n"
+        "        dropped as the rare loop drops a crashed message: the step\n"
+        '        thread lives on."""\n'
+        "        rows, self._install_rows = self._install_rows, None\n"
+        "        if not rows:\n"
+        "            return\n"
+        "        gids = list(rows)\n"
+        "        idx, term, cur, slot = (list(v) for v in zip(*rows.values()))\n"
+        "        dev = self._dev\n"
+        "        try:\n"
+        "            self.state = dev.record_snapshot(self.state, gids, idx, term)\n"
+        "            self.state = dev.max_rows(self.state, gids, current_term=cur)\n"
+        "            self.state = dev.set_rows(self.state, gids, leader_slot=slot,\n"
+        "                                      role=C.R_FOLLOWER)\n"
+        "        except Exception:  # noqa: BLE001\n"
+        "            logger.exception(\n"
+        '                "coordinator %s: dropping the device rows of %d snapshot "\n'
+        '                "installs after a crash", self.name, len(gids))\n'
+        "\n"
+        "    # -- release-cursor snapshots off the apply path ---------------------\n"
+        "\n"
+        "    SNAPSHOT_WRITERS = 4  # writer threads a coordinator\n"
+        "    SNAPSHOT_WRITE_BATCH = 64  # snapshots a writer posts under one lock\n"
+        "    SNAPSHOT_SENDERS = 32  # transfers streaming at once, a coordinator\n"
+        "\n"
+        "    def _release_cursor_async(self, g: GroupHost, eff, mac) -> bool:\n"
+        '        """Hand a release cursor\'s snapshot of a WAL-backed log to the\n'
+        "        writer threads; False (the caller snapshots inline) for other\n"
+        "        logs and once stop() has begun. The snapshot is due as in\n"
+        "        ``Log.update_release_cursor``, counted from the newest one\n"
+        "        handed out; the state is copied here, so later applies cannot\n"
+        "        change what is written. A writer writes it, then under the\n"
+        "        state lock sets the device's floor and the host's and compacts\n"
+        '        the log (``_snapshots_written``)."""\n'
+        "        log = g.log\n"
+        "        if not isinstance(log, Log):\n"
+        "            return False\n"
+        "        with self._snap_cv:\n"
+        "            if self._snap_closed:\n"
+        "                return False\n"
+        "            snap = log.snapshot_index_term()\n"
+        "            cur = max(snap[0] if snap else 0, self._snap_due.get(g.gid, 0))\n"
+        "            idx = eff.index\n"
+        "            if idx <= cur or idx - cur < log.min_snapshot_interval:\n"
+        "                return True\n"
+        "            term = log.fetch_term(idx)\n"
+        "            if term is None:\n"
+        "                return True\n"
+        "            meta = SnapshotMeta(\n"
+        "                index=idx, term=term,\n"
+        "                cluster=tuple(m for m in g.members if m is not None),\n"
+        "                machine_version=g.effective_machine_version,\n"
+        "                live_indexes=tuple(i for i in mac.live_indexes(\n"
+        "                    eff.machine_state) if i <= idx),\n"
+        "            )\n"
+        "            state = pickle.loads(pickle.dumps(eff.machine_state,\n"
+        "                                              pickle.HIGHEST_PROTOCOL))\n"
+        "            self._snap_due[g.gid] = idx\n"
+        "            self._snap_jobs[g.gid] = (g, meta, state)  # newest replaces\n"
+        "            if not self._snap_writers:\n"
+        "                for i in range(self.SNAPSHOT_WRITERS):\n"
+        "                    t = threading.Thread(\n"
+        "                        target=self._snapshot_writer, daemon=True,\n"
+        '                        name=f"ra-snap-write-{self.name}-{i}")\n'
+        "                    t.start()\n"
+        "                    self._snap_writers.append(t)\n"
+        "            self._snap_cv.notify()\n"
+        "        return True\n"
+        "\n"
+        "    def _snapshot_writer(self) -> None:\n"
+        '        """A writer thread: takes up to ``SNAPSHOT_WRITE_BATCH`` groups\n'
+        "        no other writer holds, writes their snapshots outside every\n"
+        "        lock, then posts them under the state lock. After stop() it\n"
+        '        writes what was handed out, then ends."""\n'
+        "        cv = self._snap_cv\n"
+        "        while True:\n"
+        "            with cv:\n"
+        "                while True:\n"
+        "                    batch = []\n"
+        "                    for gid, job in self._snap_jobs.items():\n"
+        "                        if gid not in self._snap_busy:\n"
+        "                            batch.append(job)\n"
+        "                            if len(batch) == self.SNAPSHOT_WRITE_BATCH:\n"
+        "                                break\n"
+        "                    if batch:\n"
+        "                        break\n"
+        "                    if self._snap_closed and not self._snap_jobs:\n"
+        "                        return\n"
+        "                    cv.wait()\n"
+        "                for g, _meta, _state in batch:\n"
+        "                    del self._snap_jobs[g.gid]\n"
+        "                    self._snap_busy.add(g.gid)\n"
+        "            done = []\n"
+        "            for g, meta, state in batch:\n"
+        "                try:\n"
+        "                    g.log.snapshots.write(meta, state, kind=SNAPSHOT)\n"
+        "                    done.append((g, meta))\n"
+        "                except Exception:  # noqa: BLE001\n"
+        "                    # as a failed inline write: no snapshot, the log\n"
+        "                    # stays whole, the next release cursor tries again\n"
+        "                    logger.exception(\n"
+        '                        "coordinator %s: snapshot of group %s at %d failed",\n'
+        "                        self.name, g.name, meta.index)\n"
+        "            with self._state_lock:\n"
+        "                self._snapshots_written(done)\n"
+        "            with cv:\n"
+        "                for g, _meta, _state in batch:\n"
+        "                    self._snap_busy.discard(g.gid)\n"
+        "                    if g.gid not in self._snap_jobs:\n"
+        "                        self._snap_due.pop(g.gid, None)\n"
+        "                cv.notify_all()\n"
+        "\n"
+        "    def _snapshots_written(self, done) -> None:\n"
+        '        """Post written snapshots (under the state lock): the device\'s\n'
+        "        floors in one ``record_snapshot``, then each log's snapshot and\n"
+        "        compaction, so a reader that sees the log's snapshot sees the\n"
+        "        device's floor. A snapshot an install has overtaken, or of a\n"
+        '        group no longer here, is not posted."""\n'
+        "        posted = []\n"
+        "        for g, meta in done:\n"
+        "            snap = g.log.snapshot_index_term()\n"
+        "            if self.groups[g.gid] is g and (snap is None\n"
+        "                                            or meta.index > snap[0]):\n"
+        "                posted.append((g, meta))\n"
+        "        rows = [(g.gid, m.index, m.term) for g, m in posted\n"
+        "                if m.index > g.snap_floor]\n"
+        "        if rows:\n"
+        "            gids, idx, term = (list(v) for v in zip(*rows))\n"
+        "            self.state = self._dev.record_snapshot(self.state, gids, idx,\n"
+        "                                                   term)\n"
+        "        for g, meta in posted:\n"
+        "            g.snap_floor = max(g.snap_floor, meta.index)\n"
+        "            g.log._post_snapshot(meta)\n"),
 ]
 
 
@@ -1085,7 +1440,9 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
     files += [os.path.join(ROOT, f) for f in (
         "chip_smoke.py", "tests/lane_cases.py", "tests/loop_cases.py",
         "tests/failover_cases.py", "scripts/loop_monitor.py",
-        "scripts/wal_setup_threads.py", "scripts/rehearse_phase_loop.py")]
+        "scripts/wal_setup_threads.py", "scripts/rehearse_phase_loop.py",
+        "tests/queue_cases.py", "scripts/rehearse_phase_queue.py",
+        "scripts/snapshot_write_probe.py", "scripts/queue_profile.py")]
     for path in files:
         src = _read(path)
         assert not _BAD_IMPORT.search(src), path
