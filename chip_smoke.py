@@ -28,8 +28,8 @@ kernels, and checks that every command was committed and applied on all
 three replicas. The same main path runs once more with the plain
 torch-op step, for comparison within the run, its depth cut to 2560
 groups x 3 replicas (``CUT_GROUPS``) to make room for phase queue. Then
-phase api drives the same 10240 groups x 3 replicas on three started
-coordinators (each with
+phase api drives 2560 groups x 3 replicas (``CUT_GROUPS``, cut for the
+run's time since phase loop (e)) on three started coordinators (each with
 its own step thread) through the client API, ``ra_tpu_torch.api``: one
 command and one consistent read per group from 32 client threads, every
 reply and read checked, the replicas of a sample of groups compared.
@@ -79,7 +79,18 @@ and hold every acknowledged value on both survivors
 (``tests/failover_cases.py``), with the process's thread count within 8
 of its count before the stop; it prints the detection time, the time
 until the fleet is led again, the highest term, which path elected each
-group, the lane counters, resident memory and the write rate.
+group, the lane counters, resident memory and the write rate. Then
+phase loop (e) restarts node 0 from its own WAL, segments and meta
+store (each node of that cluster keeps its term and vote in one): a
+fresh coordinator over its 10240 recovered logs must follow the
+survivors' leader in every group at the acknowledged totals, take one
+more write a group on all three replicas, and hold no group below the
+term its meta store held, with launches equal to steps and the thread
+count within 8 of the three-node cluster's before (d); it prints the time to
+recover with its parts (storage reopened, logs built, groups added,
+first append accepted, half, 99 % and all groups at the totals), the
+terms, the votes and pre-vote rounds of node 0, the meta store's
+fdatasyncs, threads, resident and card memory and the write rate.
 Phase queue then runs quorum queues (``tests/queue_cases.py``): the
 fifo machine in 1024 queues x 3 replicas (``QUEUE_GROUPS``, its depth
 cut for the run's time) on three started coordinators, WAL-backed in the temporary
@@ -100,9 +111,11 @@ in the first run, and every step is one step-kernel launch; it prints
 each wave's rate, the snapshot writes' times and the catch-up's.
 Phase bench last runs the port's bench, ``python -m ra_tpu_torch.bench``,
 each bench in a process of its own: the decision bench (10240 groups x
-200 steps through the step kernel), the durable headline at the full
-10240 groups x 3 replicas, WAL-backed, pipelined, with its depth cut to
-``BENCH_CMDS`` commands per group (the bench's default is 96), and the read bench (lease on against the lease-off
+200 steps through the step kernel), the durable headline at 2560
+groups x 3 replicas (``CUT_GROUPS``; the bench's default is 10240),
+WAL-backed, pipelined, with its depth cut to ``BENCH_CMDS`` commands
+per group (the bench's default is 96), both cut for the run's time,
+and the read bench (lease on against the lease-off
 control) at its defaults; every state check of the bench must hold, and
 each bench's JSON line is printed. Then the operator tools run on the
 card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
@@ -150,12 +163,12 @@ GROUPS = 10240
 PEERS = 3
 SUFFIX_K = 32
 WAVES = 4  # full-fleet command waves on the main path
-# depth cut of two earlier paths, to make room for phase queue within
-# the run's time limit: phase main's plain-step run (a comparison) and
-# phase mesh's (d) over 4 slices drive the main path at this many groups
-# x 3 replicas; phase main's kernel run, phase bench's headline and
-# phases api and loop stay at GROUPS (PERF.md lists the phase times
-# before and after)
+# depth cut of earlier paths, to make room for phase queue and phase
+# loop (e) within the run's time limit: phase main's plain-step run (a
+# comparison), phase mesh's (d) over 4 slices, phase bench's headline
+# and (since the restart of phase loop (e)) phase api drive their paths
+# at this many groups x 3 replicas; phase main's kernel run and phase
+# loop stay at GROUPS (PERF.md lists the phase times before and after)
 CUT_GROUPS = 2560
 # phase queue's depth: its two runs write 5 snapshots a queue and
 # install one, each a dozen file-system operations with their fsyncs,
@@ -678,23 +691,20 @@ def host_part_ms(S, kind: str, kern, n: int = TIMED_CALLS,
 # phase 4: the main path
 
 
+WAL_KW = {"max_batch_size": 65536}  # the smoke's WALs batch a full wave
+
+
 def open_storage(coords, node_names, workdir: str, storage: list) -> None:
     """Give each coordinator its node's shared WAL and segment writer
-    under ``workdir/<node>``, appended to ``storage`` as (tables, wal,
-    dir), the form ``bench.wal_logs`` takes, so that the caller closes
-    what was opened (the segment writer is the WAL's)."""
-    from ra_tpu_torch.log.segment_writer import SegmentWriter
-    from ra_tpu_torch.log.tables import TableRegistry
-    from ra_tpu_torch.log.wal import Wal
-
-    for n, c in zip(node_names, coords):
-        d = os.path.join(workdir, n)
-        tables = TableRegistry()
-        sw = SegmentWriter(os.path.join(d, "data"), tables, c.wal_notify)
-        w = Wal(os.path.join(d, "wal"), tables, c.wal_notify,
-                segment_writer=sw, max_batch_size=65536)
-        w.notify_many = c.wal_notify_many
-        storage.append((tables, w, d))
+    under ``workdir/<node>`` (``failover_cases.Disk``'s layout),
+    appended to ``storage`` as (tables, wal, dir), the form
+    ``bench.wal_logs`` takes, so that the caller closes what was opened
+    (the segment writer is the WAL's)."""
+    disk = failover_cases().Disk(lane_cases().Lane("ra_tpu_torch"), workdir,
+                                 node_names, 0, wal_kw=WAL_KW)
+    for i, c in enumerate(coords):
+        disk.open_wal(i, c)
+    storage.extend(disk.entries)
 
 
 def state_tensors(C, state) -> list:
@@ -965,7 +975,7 @@ def percentiles_ms(xs) -> tuple:
 
 
 def phase_api(torch, C, S, dev, workdir: str) -> dict:
-    """10240 groups x 3 replicas on three started coordinators (each
+    """``CUT_GROUPS`` groups x 3 replicas on three started coordinators (each
     stepped by its own thread), WAL-backed, leases on, driven only
     through ``ra_tpu_torch.api``: one command and one consistent read
     per group from a pool of ``API_CLIENTS`` client threads, every reply
@@ -978,7 +988,7 @@ def phase_api(torch, C, S, dev, workdir: str) -> dict:
     from ra_tpu_torch.protocol import ElectionTimeout
     from ra_tpu_torch.runtime.coordinator import BatchCoordinator
 
-    g_n = GROUPS
+    g_n = CUT_GROUPS
     node_names = [f"api{i}" for i in range(3)]
     leaderboard.clear()
     coords = [
@@ -1132,12 +1142,12 @@ def phase_api(torch, C, S, dev, workdir: str) -> dict:
 
 def api_line(ka: dict, card: str) -> str:
     return (
-        f"{GROUPS} groups x 3 replicas on 3 started coordinators, WAL-backed, "
+        f"{CUT_GROUPS} groups x 3 replicas on 3 started coordinators, WAL-backed, "
         f"lease on, {API_CLIENTS} client threads: election {ka['election_s']:.3f} s; "
-        f"{GROUPS} commands through api.process_command at "
+        f"{CUT_GROUPS} commands through api.process_command at "
         f"{ka['cmds_per_s']:.1f} cmds/s, latency p50 {ka['cmd_p50_ms']:.3f} ms "
         f"p99 {ka['cmd_p99_ms']:.3f} ms (call to return), every reply checked; "
-        f"{GROUPS} api.consistent_query reads (every 4th entering at a "
+        f"{CUT_GROUPS} api.consistent_query reads (every 4th entering at a "
         f"follower with no leader hint) at {ka['reads_per_s']:.1f} reads/s, "
         f"latency p50 {ka['read_p50_ms']:.3f} ms p99 {ka['read_p99_ms']:.3f} ms, "
         f"every read checked; counters {ka['reads']} (reads_retried: "
@@ -1504,7 +1514,8 @@ def last_json(proc) -> dict:
 # (label, arguments of ra_tpu_torch.bench, timeout s)
 BENCH_RUNS = (
     ("decisions", ["--decisions"], 300),
-    ("headline", ["--cmds", str(BENCH_CMDS)], 600),
+    ("headline", ["--groups", str(CUT_GROUPS), "--cmds", str(BENCH_CMDS)],
+     600),
     ("reads", ["--reads", "--groups", str(READS[0]), "--cmds", str(READS[1])],
      300),
 )
@@ -1969,7 +1980,9 @@ LOOP_FLIP_BURSTS = (range(GROUPS), range(1024), range(GROUPS),
 LOOP_IDLE_CPU_S = 0.010  # step + egress + sender thread CPU, idle second
 LOOP_REPLY_TIMEOUT_S = 120.0  # a reply at full width, as phase api's
 LOOP_SETTLE_TIMEOUT_S = 600.0  # elections and applies at full width
-FAILOVER_THREADS = 8  # the most threads the leader node's stop may add
+# the most threads the leader node's stop may add, and the restart of
+# that node over the three-node cluster's count before the stop
+FAILOVER_THREADS = 8
 
 
 def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
@@ -1984,14 +1997,22 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
     command (values from ``seed``), both survivors at the acknowledged
     totals, every trigger armed delivered, none shed, and the process's
     thread count within ``FAILOVER_THREADS`` of its count before the
-    stop; and (c) idle parking at full width, one coordinator of 10240
-    single-replica groups. Each scenario makes the original's
-    assertions; here also every step is one step-kernel launch
-    (launches equal to the coordinators' ``steps - sub_steps`` and
-    ``sub_steps``), the flip soaks launch both entry points, an idle
-    second launches nothing and costs the loop's threads under
-    ``LOOP_IDLE_CPU_S`` of CPU, no step reaches the plain torch-op
-    step, and ``quorum.cu`` never launches."""
+    stop; then (e) node 0 restarts from its own WAL, segments and meta
+    store (``restart_rejoin``): a fresh coordinator over its recovered
+    logs rejoins every group under the survivors' leaders at the
+    totals and takes one more command a group (values from ``seed``)
+    on all three replicas, no group of it below the term its meta store
+    held, launches over (e) equal to the steps over (e), and the thread
+    count within ``FAILOVER_THREADS`` of the cluster's before (d);
+    and (c) idle parking at full width, one coordinator of 10240
+    single-replica groups. (b)'s cluster keeps each node's term and
+    vote in a ``FileMeta`` under the node's directory. Each scenario
+    makes the original's assertions; here also every step is one
+    step-kernel launch (launches equal to the coordinators' ``steps -
+    sub_steps`` and ``sub_steps``), the flip soaks launch both entry
+    points, an idle second launches nothing and costs the loop's
+    threads under ``LOOP_IDLE_CPU_S`` of CPU, no step reaches the plain
+    torch-op step, and ``quorum.cu`` never launches."""
     import random
 
     from ra_tpu_torch import bench
@@ -2019,8 +2040,12 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
         rec = flow(card, **kw)
         torch.cuda.synchronize()
         full, sub = (a - b for a, b in zip(launches(), before))
-        want = (sum(rec["steps"]) - sum(rec["sub_steps"]),
-                sum(rec["sub_steps"]))
+        # (e) replaced node 0's coordinator: count the stopped one's too
+        gone = rec.get("then", {}).get("restart", {}).get(
+            "replaced_steps", {"steps": [], "sub_steps": []})
+        steps = sum(rec["steps"]) + sum(gone["steps"])
+        subs = sum(rec["sub_steps"]) + sum(gone["sub_steps"])
+        want = (steps - subs, subs)
         if (full, sub) != want:
             raise AssertionError(
                 f"phase loop, {label}: launches full {full}, sub {sub} != "
@@ -2038,23 +2063,38 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
         rec["launches"] = {"full": full, "sub": sub}
         return rec
 
-    storage = []
+    # (b)'s nodes' storage: a shared WAL, its segment writer and a
+    # meta store a node, each reopened alone by (e)
+    disk = FC.Disk(card, workdir, [f"fsw{i}" for i in range(3)], GROUPS,
+                   wal_kw=WAL_KW,
+                   build_logs=lambda i: bench.wal_logs([disk.entries[i]],
+                                                       GROUPS)[0])
 
-    def wal_logs(coords, names):
-        open_storage(coords, names, workdir, storage)
-        return bench.wal_logs(storage, GROUPS)
-
+    dev_name = nvidia_smi_line() if dev.type == "cuda" else str(dev)
     rng = random.Random(seed)
     values = [rng.randint(1, 1000) for _ in range(GROUPS)]
+    values_e = [rng.randint(1, 1000) for _ in range(GROUPS)]
+
+    def counts():
+        return launches() + (C.quorum.LAUNCHES,)
 
     def failover(coords, totals):
         p0 = launches()
-        rec = FC.fail_over(card, coords, totals, values, bulk=True,
-                           reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
-                           settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
-        rec["launches"] = dict(zip(("full", "sub"),
-                                   (b - a for a, b in zip(p0, launches()))))
-        return rec
+        fo = FC.fail_over(card, coords, totals, values, bulk=True,
+                          reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
+                          settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
+        fo["launches"] = dict(zip(("full", "sub"),
+                                  (b - a for a, b in zip(p0, launches()))))
+        log(f"phase loop (d): led again in {fo['led_s']:.3f} s")
+        rs = FC.restart_rejoin(card, coords, disk, fo["expect"], values_e,
+                               bulk=True, probe=counts,
+                               memory=((lambda: torch.cuda.memory_allocated(dev))
+                                       if dev.type == "cuda" else None),
+                               reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
+                               settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
+        torch.cuda.synchronize()
+        log(f"phase loop (e) record: {restart_line(rs, dev_name)}")
+        return {"failover": fo, "restart": rs}
 
     out = {}
     S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
@@ -2072,21 +2112,20 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
                 groups=GROUPS, capacity=GROUPS, per_burst=1,
                 bursts=LOOP_FLIP_BURSTS,
                 election_timeout_s=API_ELECTION_TIMEOUT_S,
-                detector_poll_s=0.1, logs=wal_logs, probe=launches,
+                detector_poll_s=0.1, logs=disk.open_all,
+                metas=[disk.open_meta(i) for i in range(3)], probe=launches,
                 bulk=True,
                 reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
                 settle_timeout_s=LOOP_SETTLE_TIMEOUT_S, then=failover)
         finally:
-            for _tables, w, _d in storage:
-                w.close()
-                w.segment_writer.close()
+            disk.close_all()
         rec = out["flip_soak_full"]
         if rec["leader_counters"]["pipeline_overlap_ns"] <= 0:
             raise AssertionError("phase loop, flip soak at full width: no "
                                  "pipeline overlap on the leader")
         # (d): fail_over itself waits for every group led by a survivor
         # and both survivors at the acknowledged totals, or raises
-        fo = rec["then"]
+        fo = rec["then"]["failover"]
         if fo["armed"] != 2 * GROUPS or fo["shed"]:
             raise AssertionError(f"phase loop (d): {fo['armed']} triggers "
                                  f"armed, {fo['shed']} shed")
@@ -2094,6 +2133,7 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
         if grown > FAILOVER_THREADS:
             raise AssertionError(
                 f"phase loop (d): {grown} threads more than before the stop")
+        check_restart(rec["then"]["restart"], fo["threads_before"])
         # (c) idle parking at full width
         rec = out["idle_parking_full"] = run(
             "idle_parking_full", LC.idle_parking, prefix="zwfull",
@@ -2114,6 +2154,43 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
     out["launches"] = {"full": S.LAUNCHES_FULL, "sub": S.LAUNCHES_SUB,
                        "quorum": C.quorum.LAUNCHES}
     return out
+
+
+def check_restart(rs: dict, cluster_threads: int) -> None:
+    """Phase loop (e)'s checks beyond ``restart_rejoin``'s own (which
+    waits for node 0 following every leader at the totals and for all
+    three replicas at the new totals, or raises): launches over (e)
+    equal to the steps over (e) (node 0's new coordinator from 0, the
+    survivors' from the restart, all read under their state locks),
+    ``quorum.cu`` not launched, no group of node 0 below the term its
+    meta store held, and the thread count's peak within
+    ``FAILOVER_THREADS`` of ``cluster_threads``, the three-node
+    cluster's count before (d) stopped node 0: the restart brings back
+    node 0's own threads (its loops, the WAL's and segment writer's, the
+    native ones of a coordinator on the card: 11, PERF.md) and builds its
+    logs on 8 more for a while, and must add none a group."""
+    b, a = rs["steps_before"], rs["steps_after"]
+    steps = a["steps"][0] + sum(x - y for x, y in zip(a["steps"][1:],
+                                                      b["steps"][1:]))
+    subs = a["sub_steps"][0] + sum(x - y for x, y in zip(a["sub_steps"][1:],
+                                                         b["sub_steps"][1:]))
+    full, sub, quorum = (x - y for x, y in zip(rs["probe_after"],
+                                                rs["probe_before"]))
+    rs["launches"] = {"full": full, "sub": sub, "quorum": quorum}
+    if (full, sub) != (steps - subs, subs):
+        raise AssertionError(
+            f"phase loop (e): launches full {full}, sub {sub} != steps "
+            f"{steps - subs} full, {subs} sub")
+    if quorum:
+        raise AssertionError("phase loop (e): quorum.cu launched")
+    if rs["below_meta"]:
+        raise AssertionError(f"phase loop (e): {rs['below_meta']} groups of "
+                             f"node 0 below the term their meta store held")
+    grown = rs["peak_threads"] - cluster_threads
+    if grown > FAILOVER_THREADS:
+        raise AssertionError(
+            f"phase loop (e): {grown} threads more than the three-node "
+            f"cluster had before (d)")
 
 
 def loop_line(kp: dict, card: str) -> str:
@@ -2159,6 +2236,16 @@ def failover_line(kf: dict, card: str) -> str:
     out = {k: v for k, v in kf.items()
            if k not in ("states", "expect", "leaders")}
     out["led_by"] = {str(i): kf["leaders"].count(i) for i in (1, 2)}
+    return f"{json.dumps(out)} | {card}"
+
+
+def restart_line(kr: dict, card: str) -> str:
+    """The measures of phase loop (e), the per-group records left out."""
+    out = {k: v for k, v in kr.items()
+           if k not in ("states", "expect", "leaders", "meta", "recovered")}
+    out["led_by"] = {str(i): kr["leaders"].count(i) for i in (1, 2)}
+    out["recovered_last_index"] = [min(r[0] for r in kr["recovered"]),
+                                   max(r[0] for r in kr["recovered"])]
     return f"{json.dumps(out)} | {card}"
 
 
@@ -2445,8 +2532,12 @@ def main(argv=None) -> int:
         remove_later(workdir)
     log(f"phase loop: {loop_line(kp, card)} | "
         f"{time.perf_counter() - t:.2f} s")
+    then = kp["flip_soak_full"]["then"]
     log(f"phase loop (d), the leader node's failure on (b)'s {GROUPS} groups "
-        f"x 3 replicas: {failover_line(kp['flip_soak_full']['then'], card)}")
+        f"x 3 replicas: {failover_line(then['failover'], card)}")
+    log(f"phase loop (e), node 0 restarted from its WAL, segments and meta "
+        f"store on (b)'s {GROUPS} groups x 3 replicas: "
+        f"{restart_line(then['restart'], card)}")
 
     # phase 11: quorum queues (the fifo machine), with
     # release-cursor snapshots and a follower's catch-up by install

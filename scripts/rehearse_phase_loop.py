@@ -1,5 +1,5 @@
-"""Rehearse ``chip_smoke.py``'s phase loop, the failover (d) included, on
-the CPU at a small width.
+"""Rehearse ``chip_smoke.py``'s phase loop, the failover (d) and the
+restart (e) included, on the CPU at a small width.
 
     python3 scripts/rehearse_phase_loop.py [--groups 256]
 
@@ -11,7 +11,8 @@ phase counts as a fault, so the two step entry points are replaced by
 stand-ins that count as the kernels' wrappers would and run the plain
 step (under its CPU lock) without passing the phase's counter;
 ``torch.cuda.synchronize`` is a no-op. Everything else (the scenarios,
-the failover on (b)'s cluster, the phase's assertions) runs as on the
+the failover and the restart on (b)'s cluster, the phase's
+assertions) runs as on the
 card. Prints the phase's lines and its wall time; times here are CPU
 times, not the card's.
 """
@@ -63,8 +64,11 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     print(f"phase loop (CPU rehearsal): {chip_smoke.loop_line(kp, 'cpu')} | "
           f"{time.perf_counter() - t:.2f} s")
+    then = kp["flip_soak_full"]["then"]
     print(f"phase loop (d) (CPU rehearsal): "
-          f"{chip_smoke.failover_line(kp['flip_soak_full']['then'], 'cpu')}")
+          f"{chip_smoke.failover_line(then['failover'], 'cpu')}")
+    print(f"phase loop (e) (CPU rehearsal): "
+          f"{chip_smoke.restart_line(then['restart'], 'cpu')}")
     return 0
 
 

@@ -11,18 +11,26 @@ imports no JAX.
   more acknowledged command there, and hold the sum of its acknowledged
   values on both survivors. ``fail_over`` also runs on another
   scenario's cluster (``loop_cases.flip_soak``'s ``then``).
+- ``restart_rejoin``: after ``fail_over``, node 0 comes back from its
+  own WAL, segments and meta store as a fresh coordinator, rejoins
+  every group under the survivors' leaders, catches up to the
+  acknowledged totals, and takes one more command a group on all three
+  replicas. ``Disk`` opens and reopens each node's storage.
 - ``node_down_triggers``: one hand-stepped follower coordinator's
   node-down election triggers (``_on_node_down``), the threads they
   take, their delays and ``armed`` stamps, and whether a trigger is
   dropped once its leader is heard from again during the delay.
 
-``tests/test_torch_failover.py`` runs both on both packages on the CPU;
-``chip_smoke.py`` (phase loop (d)) runs ``fail_over`` on the card at
-10240 groups x 3 replicas, WAL-backed, on the full-width flip soak's
-cluster. A survivor of the reference arms one ``threading.Timer`` a
-followed group; the port's arms them all on one timer thread.
+``tests/test_torch_failover.py`` runs them on both packages on the CPU;
+``chip_smoke.py`` (phase loop (d) and (e)) runs ``fail_over`` and
+``restart_rejoin`` on the card at 10240 groups x 3 replicas,
+WAL-backed, on the full-width flip soak's cluster. A survivor of the
+reference arms one ``threading.Timer`` a followed group; the port's
+arms them all on one timer thread.
 """
 
+import gc
+import importlib
 import os
 import random
 import threading
@@ -47,14 +55,25 @@ def resident_bytes() -> int:
         return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
 
 
+def _names() -> dict:
+    """The process's Python threads by name, their digits dropped."""
+    out = {}
+    for t in threading.enumerate():
+        k = "".join(ch for ch in t.name if not ch.isdigit())
+        out[k] = out.get(k, 0) + 1
+    return out
+
+
 class Sampler:
     """Samples the thread count and resident memory every ``every_s`` on
-    a thread of its own, keeping the peaks; ``mark()`` takes a sample
-    by hand and returns it."""
+    a thread of its own, keeping the peaks (and the Python threads by
+    name at the thread peak); ``mark()`` takes a sample by hand and
+    returns it."""
 
     def __init__(self, every_s=0.01):
         self.every_s = every_s
         self.peak_threads = self.peak_rss = 0
+        self.peak_names = {}
         self.samples = 0
         self._done = threading.Event()
         self._thread = threading.Thread(target=self._run,
@@ -62,6 +81,8 @@ class Sampler:
 
     def mark(self):
         n, rss = os_threads(), resident_bytes()
+        if n > self.peak_threads:
+            self.peak_names = _names()
         self.peak_threads = max(self.peak_threads, n)
         self.peak_rss = max(self.peak_rss, rss)
         self.samples += 1
@@ -154,9 +175,9 @@ def _send(lane, coord, sids, values, bulk):
 
 def leader_failover(lane, prefix="lf", groups=64, capacity=None,
                     election_timeout_s=0.3, detector_poll_s=0.05,
-                    tick_interval_s=0.2, seed=0, logs=None, probe=None,
-                    bulk=False, reply_timeout_s=30.0,
-                    settle_timeout_s=60.0, sample_every_s=0.01):
+                    tick_interval_s=0.2, seed=0, logs=None, metas=None,
+                    probe=None, bulk=False, reply_timeout_s=30.0,
+                    settle_timeout_s=60.0, sample_every_s=0.01, then=None):
     """Three started coordinators ``prefix``0..2 with ``groups`` groups
     (members on all three, an adder machine), every group elected on
     node 0 by one ``ElectionTimeout``; one acknowledged command a group
@@ -167,10 +188,14 @@ def leader_failover(lane, prefix="lf", groups=64, capacity=None,
 
     ``logs(coords, node_names)``, where given, returns each node's list
     of logs by group (e.g. WAL-backed), which the caller closes after
-    this returns. ``probe()`` (e.g. the card's launch counts) is read
-    before the stop and at the end. ``bulk`` sends the election
+    this returns; ``metas``, each node's meta store (term and vote made
+    durable), by node. ``probe()`` (e.g. the card's launch counts) is
+    read before the stop and at the end. ``bulk`` sends the election
     triggers and each round of commands through one ``deliver_many``
     a coordinator, where 10240 single deliveries could fill the lane.
+    ``then(coords, totals)``, where given, runs after ``fail_over`` on
+    the cluster (node 0 stopped, both survivors at ``totals``, by
+    group) before it stops; its result is the record's ``then``.
 
     The record is ``fail_over``'s, with the election's and the first
     write's wall time, the probes, each coordinator's ``steps`` and
@@ -185,8 +210,9 @@ def leader_failover(lane, prefix="lf", groups=64, capacity=None,
         lane.coord(n, capacity=capacity, num_peers=3,
                    election_timeout_s=election_timeout_s,
                    detector_poll_s=detector_poll_s,
-                   tick_interval_s=tick_interval_s)
-        for n in names
+                   tick_interval_s=tick_interval_s,
+                   meta=metas[i] if metas is not None else None)
+        for i, n in enumerate(names)
     ]
     rec = {"groups": groups, "probes": []}
     t0 = time.perf_counter()
@@ -225,9 +251,12 @@ def leader_failover(lane, prefix="lf", groups=64, capacity=None,
                              reply_timeout_s=reply_timeout_s,
                              settle_timeout_s=settle_timeout_s,
                              sample_every_s=sample_every_s))
+        if then is not None:
+            rec["then"] = then(coords, rec["expect"])
     finally:
         for c in coords:
-            c.stop()
+            if c is not None:  # a restart that failed midway
+                c.stop()
     rec["probes"].append(probe() if probe else None)
     rec.update(steps_of(coords))
     rec["wall_s"] = time.perf_counter() - t0
@@ -354,6 +383,376 @@ def fail_over(lane, coords, totals, values, bulk=False, reply_timeout_s=30.0,
 
 def _rate(cmds, s):
     return {"cmds": cmds, "s": s, "cmds_per_s": cmds / s}
+
+
+class Disk:
+    """Each node's storage under ``workdir/<node>``, for any package of
+    the reference's layout (imported by ``lane.name``): a shared WAL and
+    segment writer, one ``FileMeta`` (``meta.dat``) and a WAL-backed
+    ``Log`` a group (uid ``g<g>`` under ``data/``), by node index.
+    ``wal_kw`` goes to the ``Wal``; ``build_logs(i)``, where given,
+    builds node i's logs in place of the one-by-one default. A node's
+    WAL and segment writer notify the coordinator attached to it, and
+    nothing before one is.
+    ``restart_rejoin`` uses ``close``, ``open_meta``, ``open_wal``,
+    ``logs`` and ``wait_idle``."""
+
+    def __init__(self, lane, workdir, names, groups, wal_kw=None,
+                 build_logs=None):
+        def mod(sub):
+            return importlib.import_module(f"{lane.name}.{sub}")
+
+        self._Wal = mod("log.wal").Wal
+        self._SegmentWriter = mod("log.segment_writer").SegmentWriter
+        self._TableRegistry = mod("log.tables").TableRegistry
+        self._FileMeta = mod("log.meta_store").FileMeta
+        self._Log = mod("log.log").Log
+        self.dirs = [os.path.join(workdir, n) for n in names]
+        self.groups = groups
+        self.wal_kw = wal_kw or {}
+        self.build_logs = build_logs
+        self.metas = [None] * len(names)
+        self.entries = [None] * len(names)  # (tables, wal, dir)
+        self.coords = [None] * len(names)  # notified by each node's WAL
+
+    def open_meta(self, i):
+        """Node i's meta store, reloaded from its journal."""
+        self.metas[i] = self._FileMeta(os.path.join(self.dirs[i], "meta.dat"))
+        return self.metas[i]
+
+    def open_wal(self, i, coord=None):
+        """Node i's segment writer and WAL (recovering what the WAL
+        files hold), notifying ``coord`` or, where none is given, the
+        coordinator ``attach`` names later."""
+        if coord is not None:
+            self.attach(i, coord)
+        coords = self.coords
+
+        def notify(uid, evt):
+            c = coords[i]
+            if c is not None:
+                c.wal_notify(uid, evt)
+
+        def notify_many(items):
+            c = coords[i]
+            if c is not None:
+                c.wal_notify_many(items)
+
+        d = self.dirs[i]
+        tables = self._TableRegistry()
+        sw = self._SegmentWriter(os.path.join(d, "data"), tables, notify)
+        w = self._Wal(os.path.join(d, "wal"), tables, notify,
+                      segment_writer=sw, **self.wal_kw)
+        w.notify_many = notify_many
+        self.entries[i] = (tables, w, d)
+
+    def attach(self, i, coord):
+        """Route node i's storage notifications to ``coord``."""
+        self.coords[i] = coord
+
+    def logs(self, i):
+        """Node i's logs by group, over what their directories hold."""
+        if self.build_logs is not None:
+            return self.build_logs(i)
+        tables, w, d = self.entries[i]
+        return [self._Log(f"g{g}", os.path.join(d, "data", f"g{g}"), tables, w)
+                for g in range(self.groups)]
+
+    def open_all(self, coords, names):
+        """The ``logs`` hook of ``leader_failover`` and ``flip_soak``:
+        every node's WAL for its coordinator, then its logs."""
+        for i, c in enumerate(coords):
+            self.open_wal(i, c)
+        return [self.logs(i) for i in range(len(coords))]
+
+    def wait_idle(self, i, timeout_s=600.0):
+        """Wait until node i's segment writer has flushed what it was
+        handed (a reopened WAL hands it every recovered entry)."""
+        _tables, w, _d = self.entries[i]
+        if not w.segment_writer.wait_idle(timeout_s):
+            raise AssertionError(f"node {i}'s segment writer still busy "
+                                 f"after {timeout_s} s")
+
+    def close(self, i):
+        """Close node i's WAL, segment writer and meta store. The
+        segment writer first finishes its flushes: its ``close()``
+        waits 10 s for its thread and then walks the open segments
+        while the thread may still be writing them."""
+        if self.entries[i] is not None:
+            _tables, w, _d = self.entries[i]
+            w.close()
+            self.wait_idle(i)
+            w.segment_writer.close()
+            self.entries[i] = None
+        self.coords[i] = None
+        if self.metas[i] is not None:
+            self.metas[i].close()
+            self.metas[i] = None
+
+    def close_all(self):
+        for i in range(len(self.dirs)):
+            self.close(i)
+
+
+class MetaSpy:
+    """Counts a meta store's ``fdatasync``s (each ``store_sync``, and
+    each ``sync`` that found records to flush) and the votes it
+    persists, by group uid, from ``armed()`` on. It wraps the
+    instance's ``store``, ``store_sync`` and ``sync``."""
+
+    def __init__(self, meta):
+        self.syncs = 0
+        self.votes = {}  # uid -> the last voted_for persisted
+        self._on = False
+        store, store_sync, sync = meta.store, meta.store_sync, meta.sync
+
+        def note(uid, key, value):
+            if self._on and key == "voted_for" and value is not None:
+                self.votes[uid] = tuple(value)
+
+        def spy_store(uid, key, value):
+            note(uid, key, value)
+            return store(uid, key, value)
+
+        def spy_store_sync(uid, key, value):
+            note(uid, key, value)
+            if self._on:
+                self.syncs += 1
+            return store_sync(uid, key, value)
+
+        def spy_sync():
+            if self._on and meta._dirty:
+                self.syncs += 1
+            return sync()
+
+        meta.store, meta.store_sync, meta.sync = (
+            spy_store, spy_store_sync, spy_sync)
+
+    def arm(self):
+        self._on = True
+
+
+def quiet_counts(coords, probe=None, timeout_s=0.05):
+    """``probe()`` and each coordinator's ``steps`` and ``sub_steps``
+    read together while every running coordinator's state lock is held
+    (a step dispatches and counts itself under that lock), so launches
+    and steps match exactly. A lock not taken within ``timeout_s``
+    drops all of them and the read starts again."""
+    live = [c for c in coords if c is not None and c.running]
+    while True:
+        held = []
+        for c in live:
+            if not c._state_lock.acquire(timeout=timeout_s):
+                break
+            held.append(c)
+        try:
+            if len(held) == len(live):
+                return (probe() if probe else None), steps_of(coords)
+        finally:
+            for c in reversed(held):
+                c._state_lock.release()
+        time.sleep(0.001)
+
+
+def restart_rejoin(lane, coords, disk, totals, values, bulk=False,
+                   probe=None, memory=None, reply_timeout_s=30.0,
+                   settle_timeout_s=60.0, sample_every_s=0.01, poll_s=0.1,
+                   timeline_every_s=2.0):
+    """After ``fail_over`` on the same coordinators (``coords[0]``
+    stopped, every group ``g0``.. led by node 1 or 2, both survivors
+    at ``totals``, by group): node 0 comes back from disk. Its WAL,
+    segment writer and meta store are closed (``disk.close(0)``) and
+    the stopped coordinator dropped; the meta store is reopened, the
+    WAL reopened with recovery (its entries flushed to segments), node
+    0's logs built over their directories, a fresh coordinator named
+    node 0 built with the meta store (the old one's capacity, peers,
+    timeouts and active-set mode) and attached to the storage,
+    every group added over them (``add_groups``: term and vote from
+    the meta store, the recovered tails) and the coordinator started.
+    ``coords[0]`` becomes the new coordinator, so the caller stops it.
+    The scenario waits on state until every group's replica on node 0
+    follows the survivor leading it, in its term, at its total; then
+    sends one more command a group (``values``) through its leader
+    (one ``deliver_many`` a survivor with ``bulk``), every reply
+    ``ok``, and waits until all three replicas hold the new totals.
+
+    The record holds, in seconds from the restart: ``close_s`` (node
+    0's storage closed, its segment writer's flushes finished),
+    ``reopen_s`` (storage reopened, WAL recovery and its segment flush
+    included), ``logs_s``, ``add_groups_s`` (the coordinator built
+    and every group added), ``started_s``,
+    ``first_aer_s`` (a group of node 0 first seen following a leader,
+    polled every ``poll_s``), ``at_totals_s`` (10, 50, 90, 99 % and all
+    of node 0's groups first seen following at their totals;
+    ``recover_s``, the time to recover, is the last), a ``timeline``
+    every ``timeline_every_s`` (seconds, groups following a leader,
+    groups at their totals, node 0's steps and messages processed, the
+    thread count) and ``settled_s``; each group's recovered last index
+    and term and its term and vote read back from the meta store
+    before ``add_groups``; node 0's highest term against the highest
+    its meta store held, and the groups whose term sits below it; the
+    survivors' highest term before and after; the groups of node 0
+    that persisted a vote (for a peer: ``granted``; for itself:
+    ``candidate``) and the pre-vote rounds they opened after the
+    restart; the meta store's ``fdatasync``s from the restart to the
+    end; the peak thread count and resident memory against their
+    values before the restart, with the Python threads by name at both;
+    ``memory()`` (e.g. the card's allocated bytes) before, once the
+    stopped coordinator was dropped, after ``add_groups`` and at the
+    end; lane and egress counters of all three; the write's rate;
+    ``probe()`` with the coordinators' steps, read exactly together
+    (``quiet_counts``) at the restart and at the end, and the dropped
+    coordinator's own; the machine states and the
+    totals they must equal."""
+    groups = len(totals)
+    names = [c.name for c in coords]
+    gname = [f"g{g}" for g in range(groups)]
+    survivors = coords[1:]
+    old = coords[0]
+    assert not old.running, "node 0 must be stopped before its restart"
+    coord_kw = {"capacity": old.capacity, "num_peers": old.P,
+                "election_timeout_s": old.election_timeout_s,
+                "tick_interval_s": old.tick_interval_s,
+                "detector_poll_s": old._detector_poll_s,
+                "active_set": old.active_set}
+
+    def leader_of(n):
+        for c in survivors:
+            if c.by_name[n].role == lane.C.R_LEADER:
+                return c
+        return None
+
+    rec = {"groups": groups, "replaced_steps": steps_of([old])}
+    rec["survivor_term_before"] = max(
+        c.by_name[n].term for c in survivors for n in gname)
+    rec["probe_before"], rec["steps_before"] = quiet_counts(coords, probe)
+    mem = {}
+    with Sampler(sample_every_s) as sampler:
+        rec["threads_before"], rec["rss_before"] = sampler.mark()
+        names_before = _names()
+        if memory is not None:
+            mem["before"] = memory()
+        t0 = time.perf_counter()
+        disk.close(0)
+        rec["close_s"] = time.perf_counter() - t0
+        coords[0] = old = None
+        gc.collect()
+        if memory is not None:
+            mem["released"] = memory()
+        meta = disk.open_meta(0)
+        spy = MetaSpy(meta)
+        uid = [f"cl{g}_{gname[g]}" for g in range(groups)]
+        rec["meta"] = [
+            (meta.fetch(u, "current_term", 0),
+             None if meta.fetch(u, "voted_for") is None
+             else list(meta.fetch(u, "voted_for"))) for u in uid]
+        # node 0 joins the registry only with its coordinator, once its
+        # logs are open: a registered node that is not yet stepping
+        # draws every leader's resync appends into full lanes
+        disk.open_wal(0)
+        # recovery hands every recovered entry to the segment writer;
+        # a log opened meanwhile could list a segment file still being
+        # written (a torn header fails its open)
+        disk.wait_idle(0)
+        rec["reopen_s"] = time.perf_counter() - t0
+        logs = disk.logs(0)
+        rec["logs_s"] = time.perf_counter() - t0
+        rec["recovered"] = [list(log.last_index_term()) for log in logs]
+        new = lane.coord(names[0], meta=meta, **coord_kw)
+        disk.attach(0, new)
+        spy.arm()
+        new.add_groups([(gname[g], f"cl{g}", [(gname[g], n) for n in names],
+                         lane.adder(), logs[g]) for g in range(groups)])
+        rec["add_groups_s"] = time.perf_counter() - t0
+        if memory is not None:
+            mem["added"] = memory()
+        coords[0] = new
+        new.start()
+        rec["started_s"] = time.perf_counter() - t0
+
+        by0 = new.by_name
+        first_aer = None
+        done_at = {}
+        timeline = []
+        deadline = time.monotonic() + settle_timeout_s
+        while True:
+            now = time.perf_counter() - t0
+            following = sum(1 for n in gname if by0[n].leader_slot >= 0)
+            if first_aer is None and following:
+                first_aer = now
+            for g, n in enumerate(gname):
+                if n in done_at:
+                    continue
+                g0, lc = by0[n], leader_of(n)
+                if (lc is not None and g0.role == lane.C.R_FOLLOWER
+                        and g0.term == lc.by_name[n].term
+                        and g0.sid_of(g0.leader_slot) == (n, lc.name)
+                        and g0.machine_state == totals[g]):
+                    done_at[n] = now
+            if not timeline or now - timeline[-1][0] >= timeline_every_s:
+                timeline.append((now, following, len(done_at), new.steps,
+                                 new.msgs_processed, sampler.mark()[0]))
+            if len(done_at) == groups:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"{groups - len(done_at)} groups of node 0 never "
+                    f"rejoined at their totals")
+            time.sleep(poll_s)
+        rec["first_aer_s"] = first_aer
+        rec["timeline"] = timeline
+        when = sorted(done_at.values())
+        rec["at_totals_s"] = {q: when[min(groups - 1, groups * q // 100)]
+                              for q in (10, 50, 90, 99)}
+        rec["at_totals_s"][100] = rec["recover_s"] = when[-1]
+
+        t = time.perf_counter()
+        leaders = [leader_of(n) for n in gname]
+        futs = []
+        for c in survivors:
+            mine = [g for g in range(groups) if leaders[g] is c]
+            futs += _send(lane, c, [(gname[g], c.name) for g in mine],
+                          [values[g] for g in mine], bulk)
+        replies_ok(futs, reply_timeout_s)
+        rec["write_after"] = _rate(groups, time.perf_counter() - t)
+        expect = [a + b for a, b in zip(totals, values)]
+        await_(lambda: all(c.by_name[gname[g]].machine_state == expect[g]
+                           for c in coords for g in range(groups)),
+               timeout=settle_timeout_s,
+               what="all three replicas at the acknowledged totals")
+        rec["settled_s"] = time.perf_counter() - t0
+        sampler.mark()
+    rec["probe_after"], rec["steps_after"] = quiet_counts(coords, probe)
+    if memory is not None:
+        mem["end"] = memory()
+    rec["memory"] = mem
+    rec["thread_names"] = {"before": names_before,
+                           "peak": sampler.peak_names}
+    rec["peak_threads"] = sampler.peak_threads
+    rec["peak_rss"] = sampler.peak_rss
+    rec["leaders"] = [names.index(c.name) for c in leaders]
+    terms = [by0[n].term for n in gname]
+    rec["term"] = max(terms)
+    rec["meta_term"] = max(t for t, _v in rec["meta"])
+    rec["below_meta"] = sum(1 for t, (m, _v) in zip(terms, rec["meta"])
+                            if t < m)
+    rec["survivor_term_after"] = max(
+        c.by_name[n].term for c in survivors for n in gname)
+    me = {(n, names[0]) for n in gname}
+    rec["votes"] = {
+        "granted": sum(1 for v in spy.votes.values() if v not in me),
+        "candidate": sum(1 for v in spy.votes.values() if v in me)}
+    rec["pre_vote_rounds"] = sum(by0[n].pre_vote_token for n in gname)
+    rec["meta_syncs"] = spy.syncs
+    rec["states"] = [[c.by_name[n].machine_state for n in gname]
+                     for c in coords]
+    rec["expect"] = expect
+    rec["counters"] = {
+        k: [c.counters.get(k) for c in coords]
+        for k in ("ingress_ring_full", "ingress_overflow_msgs",
+                  "lane_wedges", "lane_recoveries", "stale_peer_resends",
+                  "egress_thread_ring_full")}
+    return rec
 
 
 def node_down_triggers(lane, prefix="nd", groups=64, election_timeout_s=1.0,

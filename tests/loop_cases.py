@@ -112,8 +112,9 @@ def steps_of(coords) -> dict:
 
 def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
               bursts=FLIP_BURSTS, election_timeout_s=0.05,
-              detector_poll_s=0.02, logs=None, probe=None, bulk=False,
-              reply_timeout_s=30.0, settle_timeout_s=30.0, then=None):
+              detector_poll_s=0.02, logs=None, metas=None, probe=None,
+              bulk=False, reply_timeout_s=30.0, settle_timeout_s=30.0,
+              then=None):
     """test_auto_mode_flip_soak_crosses_saturation_boundary: three
     started "auto" coordinators; every group elected on ``prefix``0,
     then bursts of ``per_burst`` commands to each group of a hot set
@@ -123,8 +124,9 @@ def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
 
     ``logs(coords, node_names)``, where given, returns each node's list
     of logs by group (e.g. WAL-backed), which the caller closes after
-    this returns. ``probe()`` is read before the first burst and after
-    each. ``bulk`` sends the election triggers and each burst round
+    this returns; ``metas``, each node's meta store (term and vote made
+    durable), by node. ``probe()`` is read before the first burst and
+    after each. ``bulk`` sends the election triggers and each burst round
     through one ``deliver_many`` (see ``send``). The record also waits
     for all three replicas' states. ``then(coords, totals)``, where
     given, runs on the started cluster after that (every group led by
@@ -134,8 +136,9 @@ def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
     coords = [
         lane.coord(n, capacity=capacity, num_peers=3, active_set="auto",
                    election_timeout_s=election_timeout_s,
-                   detector_poll_s=detector_poll_s)
-        for n in names
+                   detector_poll_s=detector_poll_s,
+                   meta=metas[i] if metas is not None else None)
+        for i, n in enumerate(names)
     ]
     rec = {"bursts": [], "probes": []}
     t0 = time.perf_counter()
@@ -195,7 +198,8 @@ def flip_soak(lane, prefix="fs", groups=24, capacity=32, per_burst=5,
         # followers first: a running coordinator that sees the leaders'
         # node stop arms an election timer thread per group it follows
         for c in reversed(coords):
-            c.stop()
+            if c is not None:  # a restart that failed midway
+                c.stop()
     rec.update(steps_of(coords))
     rec["wall_s"] = time.perf_counter() - t0
     return rec

@@ -11,6 +11,8 @@ The scenarios live in ``tests/failover_cases.py``, which
 ``chip_smoke.py`` also runs on the card. Waits are on state.
 """
 
+import importlib
+
 import pytest
 import torch
 
@@ -119,3 +121,162 @@ def test_stop_before_the_deadlines_delivers_nothing(both_clear):
     assert rec["new_threads"] == ["ra-timers"]
     assert rec["delivered_after_stop"] == 0
     assert rec["alive_after_stop"] == []
+
+
+def _restart(name, tmp_path):
+    """fail_over then restart_rejoin at 64 groups x 3 on one package,
+    WAL-backed, a meta store a node."""
+    lane = L.Lane(name)
+    names = [f"rr{i}" for i in range(3)]
+    disk = FC.Disk(lane, str(tmp_path / name), names, GROUPS)
+    third = [v % 97 + 1 for v in range(GROUPS)]
+
+    def then(coords, totals):
+        return FC.restart_rejoin(lane, coords, disk, totals, third)
+
+    try:
+        rec = FC.leader_failover(
+            lane, prefix="rr", groups=GROUPS, seed=15, logs=disk.open_all,
+            metas=[disk.open_meta(i) for i in range(3)], then=then)
+    finally:
+        disk.close_all()
+    return lane, rec
+
+
+def test_stopped_leader_node_restarts_from_disk_and_rejoins(tmp_path,
+                                                            both_clear):
+    """(e) after (a) with WAL-backed logs and a meta store a node, node
+    0 comes back from its own WAL, segments and meta store on both
+    packages: every group's replica on node 0 follows the survivors'
+    leader at its total, none sits below the term its meta store held,
+    no group of it votes or opens a pre-vote round while the leaders
+    are live, no survivor's term moves, and one more command a group
+    reaches all three replicas. What the disk holds is deterministic,
+    so the two packages recover the same tails, read back the same
+    terms and votes, and end with the same machine states."""
+    recs = {}
+    for name in PACKAGES:
+        lane, rec = _restart(name, tmp_path)
+        rr = rec["then"]
+        seen = {k: v for k, v in rr.items()
+                if k not in ("states", "expect", "leaders", "meta",
+                             "recovered")}
+        assert rr["states"] == [rr["expect"]] * 3, seen
+        assert sorted(set(rr["leaders"])) <= [1, 2], seen
+        assert rr["below_meta"] == 0, seen
+        assert rr["term"] >= rr["meta_term"] >= 1, seen
+        assert rr["votes"] == {"granted": 0, "candidate": 0}, seen
+        assert rr["pre_vote_rounds"] == 0, seen
+        assert rr["survivor_term_after"] == rr["survivor_term_before"], seen
+        assert rr["first_aer_s"] is not None, seen
+        assert (rr["close_s"] <= rr["reopen_s"] <= rr["logs_s"]
+                <= rr["add_groups_s"] <= rr["started_s"] <= rr["recover_s"]
+                <= rr["settled_s"]), seen
+        # the elections on node 0 before its stop persisted each
+        # group's term and self-vote
+        node0 = ("rr0",)
+        assert all(v is not None and tuple(v[1:]) == node0
+                   for _t, v in rr["meta"]), rr["meta"]
+        recs[name] = {k: rr[k] for k in ("recovered", "meta", "states")}
+    assert recs["ra_tpu"] == recs["ra_tpu_torch"]
+
+
+def _sync_order(name, tmp_path, groups=GROUPS):
+    """Three hand-stepped coordinators on a ManualClock, each with a
+    meta store that records its fdatasyncs and which groups' records
+    are stored but not yet synced, and a send hook that notes every
+    vote request or reply that leaves while its group's term and vote
+    are not yet durable. Every group is elected on node 0, then node 1
+    takes every group over by one ``TimeoutNow`` each (one rare pass).
+    Returns the fdatasyncs by node in each of the two elections, the
+    steps they took and the early messages."""
+    lane = L.Lane(name)
+    FileMeta = importlib.import_module(f"{name}.log.meta_store").FileMeta
+    P = lane.protocol
+    votes = (P.RequestVoteRpc, P.RequestVoteResult)
+
+    class RecordingMeta(FileMeta):
+        def __init__(self, path):
+            self.pending, self.fsyncs = set(), 0
+            super().__init__(path)
+
+        def store(self, uid, key, value):
+            super().store(uid, key, value)
+            self.pending.add(uid)
+
+        def store_sync(self, uid, key, value):
+            super().store_sync(uid, key, value)
+            self.fsyncs += 1
+            self.pending.clear()  # one fdatasync covers every record
+
+        def sync(self):
+            self.fsyncs += bool(self._dirty)
+            super().sync()
+            self.pending.clear()
+
+    clock = L.ManualClock()
+    names = [f"so{i}" for i in range(3)]
+    gname = [f"g{g}" for g in range(groups)]
+    metas = [RecordingMeta(str(tmp_path / name / n / "meta.dat"))
+             for n in names]
+    coords = [lane.coord(n, capacity=groups, num_peers=3, clock=clock,
+                         meta=m) for n, m in zip(names, metas)]
+    early = []
+
+    def watch(c, meta):
+        send = c._send_batch
+
+        def spy(node_name, msgs):
+            for to, msg, frm in msgs:
+                if isinstance(msg, votes) and f"cl{frm[0][1:]}_{frm[0]}" \
+                        in meta.pending:
+                    early.append((c.name, frm[0], type(msg).__name__))
+            return send(node_name, msgs)
+
+        c._send_batch = spy
+
+    rec = {}
+    try:
+        for c, m in zip(coords, metas):
+            c.add_groups([(n, f"cl{g}", [(n, x) for x in names],
+                           lane.adder()) for g, n in enumerate(gname)])
+            watch(c, m)
+        for i, (target, msg) in enumerate((
+                (0, P.ElectionTimeout), (1, P.TimeoutNow))):
+            f0, s0 = [m.fsyncs for m in metas], [c.steps for c in coords]
+            for n in gname:
+                coords[target].deliver((n, names[target]), msg(), None)
+            by = coords[target].by_name
+            L.step_until(coords, lambda: all(
+                by[n].role == lane.C.R_LEADER for n in gname),
+                what=f"leaders on node {target}")
+            rec[i] = {"fsyncs": [m.fsyncs - f for m, f in zip(metas, f0)],
+                      "steps": [c.steps - s for c, s in zip(coords, s0)]}
+    finally:
+        for c in coords:
+            c.stop()
+        for m in metas:
+            m.close()
+    rec["early"] = early
+    return rec
+
+
+@pytest.mark.parametrize("name", PACKAGES)
+def test_term_and_vote_are_durable_before_any_vote_message_leaves(
+        name, tmp_path, both_clear):
+    """(f) the meta store's rule, on a node's pre-vote election and on
+    a forced takeover (TimeoutNow) of every group: no vote request or
+    reply leaves before its group's term and vote are synced. The
+    reference syncs once a group; the port once for each pass that
+    changed a term or vote, so fewer times than its steps."""
+    rec = _sync_order(name, tmp_path)
+    assert rec["early"] == [], rec["early"][:5]
+    for i in (0, 1):
+        fs, steps = rec[i]["fsyncs"], rec[i]["steps"]
+        # the candidate's and at least one voter's term and vote moved
+        # in every group
+        assert fs[i] >= 1 and sum(1 for f in fs if f) >= 2, rec
+        if name == "ra_tpu":
+            assert set(fs) <= {0, GROUPS}, rec
+        else:
+            assert all(f <= s < GROUPS for f, s in zip(fs, steps)), rec

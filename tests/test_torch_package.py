@@ -1378,6 +1378,89 @@ COORD_EDITED_LINES = [
         "        for g, meta in posted:\n"
         "            g.snap_floor = max(g.snap_floor, meta.index)\n"
         "            g.log._post_snapshot(meta)\n"),
+    # term and vote of an egress pass: stored a group, made durable by
+    # one sync for the pass before its outbound leaves (the reference's
+    # store_sync a group was 10240 serial fdatasyncs a full-width
+    # election); a meta store without sync() keeps the store_sync
+    (
+        '        touched = (\n'
+        '            interesting.tolist() if len(consumed) == 0\n'
+        '            else list(set(consumed) | set(interesting.tolist()))\n'
+        '        )\n'
+        '        if touched:\n',
+        '        touched = (\n'
+        '            interesting.tolist() if len(consumed) == 0\n'
+        '            else list(set(consumed) | set(interesting.tolist()))\n'
+        '        )\n'
+        '        meta_sync = getattr(self.meta, "sync", None)\n'
+        '        meta_dirty = False\n'
+        '        if touched:\n'),
+    (
+        '                if tvc_l[p] and self.meta is not None:\n'
+        '                    # Raft safety: term AND vote must both be durable\n'
+        '                    # before any message leaves this step, or a\n'
+        '                    # restarted member could vote twice in one term\n'
+        '                    uid = f"{g.cluster_name}_{g.name}"\n'
+        '                    self.meta.store(uid, "current_term", g.term)\n'
+        '                    self.meta.store_sync(uid, "voted_for", g.sid_of(voted_l[p]))\n',
+        '                if tvc_l[p] and self.meta is not None:\n'
+        '                    # Raft safety: term AND vote must both be durable\n'
+        '                    # before any message leaves this step, or a\n'
+        '                    # restarted member could vote twice in one term:\n'
+        '                    # stored here, made durable by ONE sync for the\n'
+        '                    # whole pass before its outbound is sent below (a\n'
+        '                    # sync a group is 10240 serial fdatasyncs in one\n'
+        '                    # full-width election)\n'
+        '                    uid = f"{g.cluster_name}_{g.name}"\n'
+        '                    self.meta.store(uid, "current_term", g.term)\n'
+        '                    if meta_sync is None:  # a store with no pass sync\n'
+        '                        self.meta.store_sync(uid, "voted_for",\n'
+        '                                             g.sid_of(voted_l[p]))\n'
+        '                    else:\n'
+        '                        self.meta.store(uid, "voted_for", g.sid_of(voted_l[p]))\n'
+        '                        meta_dirty = True\n'),
+    (
+        '                        self._hot.add(i)\n'
+        '\n'
+        '        for node_name, msgs in outbound.items():\n'
+        '            self._send_batch(node_name, msgs)\n'
+        '\n'
+        '    def _host_resolve_aer(',
+        '                        self._hot.add(i)\n'
+        '\n'
+        '        if meta_dirty:\n'
+        '            meta_sync()\n'
+        '        for node_name, msgs in outbound.items():\n'
+        '            self._send_batch(node_name, msgs)\n'
+        '\n'
+        '    def _host_resolve_aer('),
+    # a rare pass's forced candidacies (TimeoutNow): stored a group,
+    # synced once before the pass's rare_out ships; a direct call
+    # (rare_out None) syncs at once, as the reference
+    (
+        '                # term AND self-vote must be durable before any vote\n'
+        '                # request leaves this node (restart double-vote safety)\n'
+        '                uid = f"{g.cluster_name}_{g.name}"\n'
+        '                self.meta.store(uid, "current_term", g.term)\n'
+        '                self.meta.store_sync(uid, "voted_for", (g.name, self.name))\n',
+        '                # term AND self-vote must be durable before any vote\n'
+        '                # request leaves this node (restart double-vote safety):\n'
+        '                # in a rare pass, ONE sync before its rare_out ships\n'
+        "                # (_finish_ticket) covers every group's\n"
+        '                uid = f"{g.cluster_name}_{g.name}"\n'
+        '                self.meta.store(uid, "current_term", g.term)\n'
+        '                if rare_out is None or getattr(self.meta, "sync", None) is None:\n'
+        '                    self.meta.store_sync(uid, "voted_for", (g.name, self.name))\n'
+        '                else:\n'
+        '                    self.meta.store(uid, "voted_for", (g.name, self.name))\n'),
+    (
+        '        self._flush_install_rows()\n'
+        '        for node_name, msgs in rare_out.items():\n',
+        '        self._flush_install_rows()\n'
+        '        meta_sync = getattr(self.meta, "sync", None)\n'
+        '        if meta_sync is not None:\n'
+        "            meta_sync()  # the pass's forced candidacies, before they leave\n"
+        '        for node_name, msgs in rare_out.items():\n'),
 ]
 
 
@@ -1442,7 +1525,8 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
         "tests/failover_cases.py", "scripts/loop_monitor.py",
         "scripts/wal_setup_threads.py", "scripts/rehearse_phase_loop.py",
         "tests/queue_cases.py", "scripts/rehearse_phase_queue.py",
-        "scripts/snapshot_write_probe.py", "scripts/queue_profile.py")]
+        "scripts/snapshot_write_probe.py", "scripts/queue_profile.py",
+        "scripts/meta_sync_probe.py")]
     for path in files:
         src = _read(path)
         assert not _BAD_IMPORT.search(src), path
