@@ -26,10 +26,11 @@ three ``BatchCoordinator``s hosting 10240 raft groups x 3 replicas over
 WAL-backed logs, cooperative pipelined stepping, through the step
 kernels, and checks that every command was committed and applied on all
 three replicas. The same main path runs once more with the plain
-torch-op step, for comparison within the run, its depth cut to 2560
-groups x 3 replicas (``CUT_GROUPS``) to make room for phase queue. Then
-phase api drives 2560 groups x 3 replicas (``CUT_GROUPS``, cut for the
-run's time since phase loop (e)) on three started coordinators (each with
+torch-op step, for comparison within the run, its depth cut to 1024
+groups x 3 replicas (``CUT_GROUPS``) to make room for phase queue and
+phase loop (e) and (f). Then
+phase api drives 1024 groups x 3 replicas (``CUT_GROUPS``, cut for the
+run's time) on three started coordinators (each with
 its own step thread) through the client API, ``ra_tpu_torch.api``: one
 command and one consistent read per group from 32 client threads, every
 reply and read checked, the replicas of a sample of groups compared.
@@ -48,7 +49,7 @@ CPU; the step over four slices of the group axis on ``cuda:0`` against
 the unsharded step kernel and the plain step at 10240 groups, chained,
 with scatter rows at every slice edge and pads; ``graft_entry.dryrun_multichip(4)`` (its four
 phases over a four-slice mesh on ``cuda:0``); and the main path,
-WAL-backed, its depth cut to 2560 groups x 3 replicas, through
+WAL-backed, its depth cut to 1024 groups x 3 replicas, through
 coordinators over a four-slice mesh (four measured waves, as phase
 main), every command checked on all three replicas, one step-kernel
 launch a slice a step and no active set.
@@ -67,7 +68,7 @@ started wave loops (step, egress and sender threads;
 soak, idle parking and threaded pipeline at their own shapes, then the
 flip soak at 10240 groups x 3 replicas, WAL-backed, pipelined, five
 bursts of one command per group across the active set's threshold both
-ways (33,792 replies, all three replicas checked), and an idle
+ways (21,504 replies, all three replicas checked), and an idle
 coordinator of 10240 single-replica groups parked for a second: no
 wakeup, no launch, under 10 ms of its loop threads' CPU. Every step
 there is one step-kernel launch (both entry points in the flip soaks),
@@ -90,9 +91,20 @@ count within 8 of the three-node cluster's before (d); it prints the time to
 recover with its parts (storage reopened, logs built, groups added,
 first append accepted, half, 99 % and all groups at the totals), the
 terms, the votes and pre-vote rounds of node 0, the meta store's
-fdatasyncs, threads, resident and card memory and the write rate.
+fdatasyncs, threads, resident and card memory and the write rate. Then
+phase loop (f) replaces node 0 for good by a fresh node 3, as an
+operator replaces a lost broker: node 0 stopped and shrunk out of every
+group through its leader, node 3 built and joined to every group as a
+non-voter, caught up by append and promoted, and one more write a
+group on nodes 1, 2 and 3, every reply ``ok``, three voters and no
+trace of node 0 in every group on every live node, the device's member
+rows equal to the host tables, no survivor's term moved, launches equal
+to steps and threads within 8 of the count before (f); it prints the
+time to replace a node with its parts (stop, shrink, node 3's logs and
+groups, grow, first append, half, 99 % and all at the totals and
+promoted), the member-row scatters, threads, memory and lane counters.
 Phase queue then runs quorum queues (``tests/queue_cases.py``): the
-fifo machine in 1024 queues x 3 replicas (``QUEUE_GROUPS``, its depth
+fifo machine in 512 queues x 3 replicas (``QUEUE_GROUPS``, its depth
 cut for the run's time) on three started coordinators, WAL-backed in the temporary
 directory, each log snapshotting at a release cursor once 8 entries
 have passed; per queue a consumer checks out, four messages are
@@ -111,14 +123,14 @@ in the first run, and every step is one step-kernel launch; it prints
 each wave's rate, the snapshot writes' times and the catch-up's.
 Phase bench last runs the port's bench, ``python -m ra_tpu_torch.bench``,
 each bench in a process of its own: the decision bench (10240 groups x
-200 steps through the step kernel), the durable headline at 2560
+200 steps through the step kernel), the durable headline at 1024
 groups x 3 replicas (``CUT_GROUPS``; the bench's default is 10240),
 WAL-backed, pipelined, with its depth cut to ``BENCH_CMDS`` commands
 per group (the bench's default is 96), both cut for the run's time,
 and the read bench (lease on against the lease-off
 control) at its defaults; every state check of the bench must hold, and
 each bench's JSON line is printed. Then the operator tools run on the
-card (``profile_wave`` at 2048 x 4, ``obs_smoke``, ``ra_top --demo``),
+card (``profile_wave`` at 512 x 4, ``obs_smoke``, ``ra_top --demo``),
 and the decision bench's loop on the step kernel is held against the
 same loop on the plain step at 10240 groups.
 The clusters' directories are removed in the background while later
@@ -132,7 +144,8 @@ Options (the defaults are the smoke run):
     --switch-interval S    set the interpreter's thread switch interval
                            (sys.setswitchinterval) to S seconds for the
                            main-path runs
-    --seed N               seed of phase loop (d)'s command values
+    --seed N               seed of phase loop (d), (e) and (f)'s
+                           command values
 
 Phases print one line each (and their elapsed time). The line before
 the last is a JSON object ``{"kernels": [...]}`` with each kernel's
@@ -164,19 +177,20 @@ PEERS = 3
 SUFFIX_K = 32
 WAVES = 4  # full-fleet command waves on the main path
 # depth cut of earlier paths, to make room for phase queue and phase
-# loop (e) within the run's time limit: phase main's plain-step run (a
-# comparison), phase mesh's (d) over 4 slices, phase bench's headline
-# and (since the restart of phase loop (e)) phase api drive their paths
-# at this many groups x 3 replicas; phase main's kernel run and phase
-# loop stay at GROUPS (PERF.md lists the phase times before and after)
-CUT_GROUPS = 2560
+# loop (e) and (f) within the run's time limit: phase main's plain-step
+# run (a comparison), phase mesh's (d) over 4 slices, phase bench's
+# headline and phase api drive their paths at this many groups x 3
+# replicas; phase main's kernel run and phase loop stay at GROUPS
+# (PERF.md lists the phase times before and after)
+CUT_GROUPS = 1024
 # phase queue's depth: its two runs write 5 snapshots a queue and
 # install one, each a dozen file-system operations with their fsyncs,
 # in the temporary directory. At 10240 queues x 3 on the card machine's
 # 9p temporary directory the snapshots of the two runs took about 570 s
 # and the catch-up installed 16 a second (PERF.md): the phase alone
-# outran the run's time limit, so it runs at this many queues x 3
-QUEUE_GROUPS = 1024
+# outran the run's time limit, so it runs at this many queues x 3 (512
+# since phase loop (f))
+QUEUE_GROUPS = 512
 TIMED_CALLS = 200  # per timed function (median reported)
 # the active-set step's shape: the coordinator's power-of-two pad over
 # 1500 hot groups
@@ -206,7 +220,7 @@ API_READ_ATTEMPTS = 5
 # and the shape of profile_wave
 BENCH_CMDS = 4
 DECISIONS_CHECK_STEPS = 10
-PROFILE_WAVE = (2048, 4)
+PROFILE_WAVE = (512, 4)  # cut from (2048, 4) for the run's time
 READS = (256, 60)  # the read bench's default groups and rounds
 
 # H100 SXM published peaks (NVIDIA data sheet), for the bound
@@ -1975,13 +1989,17 @@ def failover_cases():
 
 # the flip soak at full width: one command per group a burst, hot sets
 # across the active set's threshold (capacity / 4 = 2560) both ways
-LOOP_FLIP_BURSTS = (range(GROUPS), range(1024), range(GROUPS),
-                    range(4096, 6144), range(GROUPS))
+# (three bursts since phase loop (f), five before, for the run's time)
+LOOP_FLIP_BURSTS = (range(GROUPS), range(1024), range(GROUPS))
 LOOP_IDLE_CPU_S = 0.010  # step + egress + sender thread CPU, idle second
 LOOP_REPLY_TIMEOUT_S = 120.0  # a reply at full width, as phase api's
 LOOP_SETTLE_TIMEOUT_S = 600.0  # elections and applies at full width
-# the most threads the leader node's stop may add, and the restart of
-# that node over the three-node cluster's count before the stop
+# (f)'s poll of node 3's 10240 groups: each poll walks them all under the
+# interpreter lock, so it polls less often than the 0.1 s default
+LOOP_REPLACE_POLL_S = 0.5
+# the most threads the leader node's stop may add, the restart of that
+# node over the three-node cluster's count before the stop, and its
+# replacement over the count before the replacement
 FAILOVER_THREADS = 8
 
 
@@ -2004,6 +2022,15 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
     on all three replicas, no group of it below the term its meta store
     held, launches over (e) equal to the steps over (e), and the thread
     count within ``FAILOVER_THREADS`` of the cluster's before (d);
+    then (f) node 0 is lost for good and replaced by a fresh node 3
+    (``replace_node``): shrunk out of every group through its leader,
+    node 3 joined to every group as a non-voter, caught up by append and
+    promoted, and one more command a group (values from ``seed``) on
+    nodes 1, 2 and 3, every reply ``ok``, every group with three voters
+    and no trace of node 0 on every live node, the device's member rows
+    equal to the host tables, no survivor's term moved, launches over
+    (f) equal to the steps over (f), and the thread count within
+    ``FAILOVER_THREADS`` of its count before (f);
     and (c) idle parking at full width, one coordinator of 10240
     single-replica groups. (b)'s cluster keeps each node's term and
     vote in a ``FileMeta`` under the node's directory. Each scenario
@@ -2040,11 +2067,13 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
         rec = flow(card, **kw)
         torch.cuda.synchronize()
         full, sub = (a - b for a, b in zip(launches(), before))
-        # (e) replaced node 0's coordinator: count the stopped one's too
-        gone = rec.get("then", {}).get("restart", {}).get(
-            "replaced_steps", {"steps": [], "sub_steps": []})
-        steps = sum(rec["steps"]) + sum(gone["steps"])
-        subs = sum(rec["sub_steps"]) + sum(gone["sub_steps"])
+        # (e) and (f) each replaced node 0's coordinator: count the
+        # stopped ones' steps too
+        then = rec.get("then", {})
+        gone = [then[k]["replaced_steps"] for k in ("restart", "replace")
+                if k in then]
+        steps = sum(rec["steps"]) + sum(sum(x["steps"]) for x in gone)
+        subs = sum(rec["sub_steps"]) + sum(sum(x["sub_steps"]) for x in gone)
         want = (steps - subs, subs)
         if (full, sub) != want:
             raise AssertionError(
@@ -2064,8 +2093,8 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
         return rec
 
     # (b)'s nodes' storage: a shared WAL, its segment writer and a
-    # meta store a node, each reopened alone by (e)
-    disk = FC.Disk(card, workdir, [f"fsw{i}" for i in range(3)], GROUPS,
+    # meta store a node, each reopened alone by (e), and (f)'s node 3's
+    disk = FC.Disk(card, workdir, [f"fsw{i}" for i in range(4)], GROUPS,
                    wal_kw=WAL_KW,
                    build_logs=lambda i: bench.wal_logs([disk.entries[i]],
                                                        GROUPS)[0])
@@ -2074,9 +2103,13 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
     rng = random.Random(seed)
     values = [rng.randint(1, 1000) for _ in range(GROUPS)]
     values_e = [rng.randint(1, 1000) for _ in range(GROUPS)]
+    values_f = [rng.randint(1, 1000) for _ in range(GROUPS)]
 
     def counts():
         return launches() + (C.quorum.LAUNCHES,)
+
+    memory = ((lambda: torch.cuda.memory_allocated(dev))
+              if dev.type == "cuda" else None)
 
     def failover(coords, totals):
         p0 = launches()
@@ -2087,14 +2120,21 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
                                   (b - a for a, b in zip(p0, launches()))))
         log(f"phase loop (d): led again in {fo['led_s']:.3f} s")
         rs = FC.restart_rejoin(card, coords, disk, fo["expect"], values_e,
-                               bulk=True, probe=counts,
-                               memory=((lambda: torch.cuda.memory_allocated(dev))
-                                       if dev.type == "cuda" else None),
+                               bulk=True, probe=counts, memory=memory,
                                reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
                                settle_timeout_s=LOOP_SETTLE_TIMEOUT_S)
         torch.cuda.synchronize()
         log(f"phase loop (e) record: {restart_line(rs, dev_name)}")
-        return {"failover": fo, "restart": rs}
+        rp = FC.replace_node(card, coords, disk, rs["expect"], values_f,
+                             "fsw3", bulk=True, probe=counts,
+                             memory=memory, api_sample=API_SAMPLE,
+                             clients=API_CLIENTS,
+                             reply_timeout_s=LOOP_REPLY_TIMEOUT_S,
+                             settle_timeout_s=LOOP_SETTLE_TIMEOUT_S,
+                             poll_s=LOOP_REPLACE_POLL_S)
+        torch.cuda.synchronize()
+        log(f"phase loop (f) record: {replace_line(rp, dev_name)}")
+        return {"failover": fo, "restart": rs, "replace": rp}
 
     out = {}
     S.LAUNCHES_FULL = S.LAUNCHES_SUB = C.quorum.LAUNCHES = 0
@@ -2134,6 +2174,7 @@ def phase_loop(torch, C, S, dev, workdir: str, seed: int = 12) -> dict:
             raise AssertionError(
                 f"phase loop (d): {grown} threads more than before the stop")
         check_restart(rec["then"]["restart"], fo["threads_before"])
+        check_replace(rec["then"]["replace"])
         # (c) idle parking at full width
         rec = out["idle_parking_full"] = run(
             "idle_parking_full", LC.idle_parking, prefix="zwfull",
@@ -2193,6 +2234,59 @@ def check_restart(rs: dict, cluster_threads: int) -> None:
             f"cluster had before (d)")
 
 
+def check_replace(rp: dict) -> None:
+    """Phase loop (f)'s checks beyond ``replace_node``'s own (which
+    waits for node 3 at its totals and a voter in every group and for
+    nodes 1, 2 and 3 at the new totals, or raises): every shrink, grow
+    and write reply ``ok``; no group naming node 0 on any live node;
+    every group with nodes 1, 2 and 3, all voters, on every live node;
+    the device's ``active``/``voting`` rows equal to the host tables;
+    the survivors' highest term unmoved (no election); all three at the
+    acknowledged totals; launches over (f) equal to the steps over (f)
+    (node 0 until its stop, node 3 from 0, the survivors from the start,
+    all read under their state locks) and ``quorum.cu`` not launched;
+    the thread count's peak within ``FAILOVER_THREADS`` of its count
+    before (f) (the client threads of the API sample are in both)."""
+    b, a, r = rp["steps_before"], rp["steps_after"], rp["replaced_steps"]
+
+    def over(k):
+        return (r[k][0] - b[k][0] + a[k][0]
+                + sum(x - y for x, y in zip(a[k][1:], b[k][1:])))
+
+    steps, subs = over("steps"), over("sub_steps")
+    full, sub, quorum = (x - y for x, y in zip(rp["probe_after"],
+                                                rp["probe_before"]))
+    rp["launches"] = {"full": full, "sub": sub, "quorum": quorum}
+    bad = []
+    if (full, sub) != (steps - subs, subs):
+        bad.append(f"launches full {full}, sub {sub} != steps "
+                   f"{steps - subs} full, {subs} sub")
+    if quorum:
+        bad.append("quorum.cu launched")
+    for k in ("shrink", "grow", "write"):
+        if rp["replies"][k] != {"ok": GROUPS}:
+            bad.append(f"{k} replies {rp['replies'][k]}")
+    if any(rp["named_node0"]):
+        bad.append(f"groups naming node 0 by node {rp['named_node0']}")
+    want = sorted((n, "voter") for n in rp["live_names"])
+    off = [sum(1 for m in view if m != want) for view in rp["members"]]
+    if any(off):
+        bad.append(f"groups without three voters by node {off}")
+    if any(rp["row_mismatches"]):
+        bad.append(f"device rows off the host tables by node "
+                   f"{rp['row_mismatches']}")
+    if rp["survivor_term_after"] != rp["survivor_term_before"]:
+        bad.append(f"survivors' term {rp['survivor_term_before']} -> "
+                   f"{rp['survivor_term_after']}")
+    if rp["states"] != [rp["expect"]] * 3:
+        bad.append("a replica off the acknowledged totals")
+    grown = rp["peak_threads"] - rp["threads_before"]
+    if grown > FAILOVER_THREADS:
+        bad.append(f"{grown} threads more than before (f)")
+    if bad:
+        raise AssertionError(f"phase loop (f): {'; '.join(bad)}")
+
+
 def loop_line(kp: dict, card: str) -> str:
     fw, idle = kp["flip_soak_full"], kp["idle_parking_full"]
     probes = fw["probes"]
@@ -2246,6 +2340,20 @@ def restart_line(kr: dict, card: str) -> str:
     out["led_by"] = {str(i): kr["leaders"].count(i) for i in (1, 2)}
     out["recovered_last_index"] = [min(r[0] for r in kr["recovered"]),
                                    max(r[0] for r in kr["recovered"])]
+    return f"{json.dumps(out)} | {card}"
+
+
+def replace_line(kp: dict, card: str) -> str:
+    """The measures of phase loop (f), the per-group records summed."""
+    out = {k: v for k, v in kp.items()
+           if k not in ("states", "expect", "leaders", "members")}
+    out["led_by"] = {str(i): kp["leaders"].count(i) for i in (1, 2)}
+    views = {}
+    for view in kp["members"]:
+        for m in view:
+            k = ",".join(f"{n}:{s}" for n, s in m)
+            views[k] = views.get(k, 0) + 1
+    out["member_views"] = views  # over nodes 1, 2, 3 and every group
     return f"{json.dumps(out)} | {card}"
 
 
@@ -2376,8 +2484,8 @@ def main(argv=None) -> int:
     ap.add_argument("--rounds", type=int, default=1)
     ap.add_argument("--switch-interval", type=float, default=None)
     ap.add_argument("--seed", type=int, default=12,
-                    help="seed of phase loop (d)'s command values and of "
-                         "phase queue's payloads")
+                    help="seed of phase loop (d), (e) and (f)'s command "
+                         "values and of phase queue's payloads")
     args = ap.parse_args(argv)
     if args.rounds < 1:
         ap.error("--rounds must be at least 1")
@@ -2538,6 +2646,10 @@ def main(argv=None) -> int:
     log(f"phase loop (e), node 0 restarted from its WAL, segments and meta "
         f"store on (b)'s {GROUPS} groups x 3 replicas: "
         f"{restart_line(then['restart'], card)}")
+    log(f"phase loop (f), node 0 replaced by a fresh node 3 in (b)'s "
+        f"{GROUPS} groups x 3 replicas (shrink, grow as a non-voter, "
+        f"promotion): replace_s {then['replace']['replace_s']:.3f} s: "
+        f"{replace_line(then['replace'], card)}")
 
     # phase 11: quorum queues (the fifo machine), with
     # release-cursor snapshots and a follower's catch-up by install

@@ -124,7 +124,11 @@ class SegmentWriter:
             self._closed = True
             self._cv.notify_all()
         if self._thread is not None:
-            self._thread.join(timeout=10)
+            # the flusher drains the queue before it exits: wait for it
+            # however long its flushes take, so that the drain below only
+            # takes what a dead flusher left (two drainers would write one
+            # server's open segment at once)
+            self._thread.join()
         self._drain()
         for h in self._open.values():
             h.close()

@@ -23,6 +23,7 @@ from __future__ import annotations
 import bisect
 import os
 import pickle
+import struct
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -75,7 +76,12 @@ class SegmentSet:
             if f.endswith(".segment") and not os.path.islink(p):
                 try:
                     r = SegmentReader(p)
-                except (ValueError, OSError):
+                except (ValueError, OSError, struct.error):
+                    # struct.error: shorter than its header and index
+                    # region, which the segment writer writes before any
+                    # entry, so a file it is still creating: no entry is
+                    # in it yet, and its range comes with the writer's
+                    # notification
                     continue
                 if r.range:
                     self.refs[f] = r.range

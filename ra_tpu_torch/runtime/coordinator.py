@@ -595,6 +595,11 @@ class BatchCoordinator:
         # its end, by gid (None outside a pass): one scatter for the
         # pass, not three a group
         self._install_rows: Optional[Dict[int, Tuple[int, ...]]] = None
+        # member rows (active, voting) a pass changed, by gid, written to
+        # the device in one scatter before the next step and at the end
+        # of every realised pass: one scatter a pass, not one a group a
+        # membership change
+        self._member_rows: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
 
         self.registry = nodes or node_registry()
         self.transport = InProcTransport(node_name, self.registry)
@@ -1090,6 +1095,7 @@ class BatchCoordinator:
             unk_lo = np.where(lis > sidxs, sidxs + 1, 1).astype(np.int32)
             unk_hi = np.where(lis > sidxs, lis, 0).astype(np.int32)
             with self._state_lock:
+                self._flush_member_rows()
                 self.state = dev.set_rows(
                     self.state, gids,
                     active=act,
@@ -1874,6 +1880,7 @@ class BatchCoordinator:
         # inside the fused step — one transfer + one dispatch per step.
         # A sharded coordinator never takes the active set (as in the
         # reference): every slice steps at full width.
+        self._flush_member_rows()
         act: Optional[list] = None
         if not self._sharded and self.active_set != "never":
             cand = self._hot | appended.keys() | written.keys()
@@ -1986,6 +1993,7 @@ class BatchCoordinator:
                     g.name,
                 )
         self._flush_install_rows()
+        self._flush_member_rows()
         meta_sync = getattr(self.meta, "sync", None)
         if meta_sync is not None:
             meta_sync()  # the pass's forced candidacies, before they leave
@@ -2441,21 +2449,35 @@ class BatchCoordinator:
         return None
 
     def _sync_member_rows(self, g: GroupHost) -> None:
-        """Scatter the host member table's active/voting view to the
-        device (call sites all run under the state lock)."""
+        """Stage the host member table's active/voting view for the
+        device (call sites all run under the state lock); the pass's
+        rows reach it in one scatter (``_flush_member_rows``)."""
         active = np.zeros(self.P, dtype=bool)
         voting = np.zeros(self.P, dtype=bool)
         for i, m in enumerate(g.members):
             if m is not None:
                 active[i] = True
                 voting[i] = g.voter_status.get(i) == "voter"
-        self.state = self._dev.set_rows(
-            self.state, g.gid, active=active, voting=voting
-        )
+        self._member_rows[g.gid] = (active, voting)
         if self.lease_cfg.enabled:
             if g.role == C.R_LEADER:
                 self._lease_revoke(g, "membership change")
             self._lease_sync(g)
+
+    def _flush_member_rows(self) -> None:
+        """Write the staged member rows to the device, one scatter a
+        field for every group staged since the last flush (each group's
+        last view, as the reference's one scatter a change leaves it).
+        Runs under the state lock, before a step is dispatched, at the
+        end of every realised pass and before another write of these
+        rows."""
+        rows, self._member_rows = self._member_rows, {}
+        if rows:
+            self.state = self._dev.set_rows(
+                self.state, list(rows),
+                active=np.stack([a for a, _v in rows.values()]),
+                voting=np.stack([v for _a, v in rows.values()]),
+            )
 
     def _adopt_cluster_cmd(self, g: GroupHost, cmd: Command, entry_index: int = 0) -> None:
         """Follower-side adoption of a replicated cluster change (slot
@@ -4191,6 +4213,7 @@ class BatchCoordinator:
             g.cluster_change_permitted = True
             onehot = np.zeros(self.P, dtype=bool)
             onehot[0] = True
+            self._flush_member_rows()
             self.state = self._dev.set_rows(
                 self.state, g.gid, voting=onehot, active=onehot, self_slot=0,
             )

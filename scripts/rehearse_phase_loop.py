@@ -1,5 +1,6 @@
-"""Rehearse ``chip_smoke.py``'s phase loop, the failover (d) and the
-restart (e) included, on the CPU at a small width.
+"""Rehearse ``chip_smoke.py``'s phase loop, the failover (d), the
+restart (e) and the replacement (f) included, on the CPU at a small
+width.
 
     python3 scripts/rehearse_phase_loop.py [--groups 256]
 
@@ -11,9 +12,8 @@ phase counts as a fault, so the two step entry points are replaced by
 stand-ins that count as the kernels' wrappers would and run the plain
 step (under its CPU lock) without passing the phase's counter;
 ``torch.cuda.synchronize`` is a no-op. Everything else (the scenarios,
-the failover and the restart on (b)'s cluster, the phase's
-assertions) runs as on the
-card. Prints the phase's lines and its wall time; times here are CPU
+the failover, the restart and the replacement on (b)'s cluster, the
+phase's assertions) runs as on the card. Prints the phase's lines and its wall time; times here are CPU
 times, not the card's.
 """
 
@@ -69,6 +69,8 @@ def main() -> int:
           f"{chip_smoke.failover_line(then['failover'], 'cpu')}")
     print(f"phase loop (e) (CPU rehearsal): "
           f"{chip_smoke.restart_line(then['restart'], 'cpu')}")
+    print(f"phase loop (f) (CPU rehearsal): "
+          f"{chip_smoke.replace_line(then['replace'], 'cpu')}")
     return 0
 
 

@@ -16,14 +16,23 @@ imports no JAX.
   every group under the survivors' leaders, catches up to the
   acknowledged totals, and takes one more command a group on all three
   replicas. ``Disk`` opens and reopens each node's storage.
+- ``replace_node``: after ``restart_rejoin``, node 0 is lost for good
+  and replaced, as an operator replaces a lost broker: it is shrunk out
+  of every group through the group's leader, a fresh node 3 is built,
+  joins every group as a non-voter, is caught up by append and
+  promoted, and takes one more command a group with nodes 1 and 2.
+  ``reused_slot`` shows, hand-stepped on one group, that the joining
+  non-voter in the slot the leaver left is counted in no quorum before
+  its promotion.
 - ``node_down_triggers``: one hand-stepped follower coordinator's
   node-down election triggers (``_on_node_down``), the threads they
   take, their delays and ``armed`` stamps, and whether a trigger is
   dropped once its leader is heard from again during the delay.
 
 ``tests/test_torch_failover.py`` runs them on both packages on the CPU;
-``chip_smoke.py`` (phase loop (d) and (e)) runs ``fail_over`` and
-``restart_rejoin`` on the card at 10240 groups x 3 replicas,
+``chip_smoke.py`` (phase loop (d), (e) and (f)) runs ``fail_over``,
+``restart_rejoin`` and ``replace_node`` on the card at 10240 groups x 3
+replicas,
 WAL-backed, on the full-width flip soak's cluster. A survivor of the
 reference arms one ``threading.Timer`` a followed group; the port's
 arms them all on one timer thread.
@@ -35,6 +44,8 @@ import os
 import random
 import threading
 import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 
 from lane_cases import ManualClock, step_until
 from loop_cases import await_, replies_ok, steps_of
@@ -395,7 +406,9 @@ class Disk:
     WAL and segment writer notify the coordinator attached to it, and
     nothing before one is.
     ``restart_rejoin`` uses ``close``, ``open_meta``, ``open_wal``,
-    ``logs`` and ``wait_idle``."""
+    ``logs`` and ``wait_idle``; ``replace_node`` opens a node that the
+    cluster did not start with (index 3 of four ``names``) alone, with
+    ``open_meta``, ``open_wal``, ``logs`` and ``attach``."""
 
     def __init__(self, lane, workdir, names, groups, wal_kw=None,
                  build_logs=None):
@@ -407,6 +420,7 @@ class Disk:
         self._TableRegistry = mod("log.tables").TableRegistry
         self._FileMeta = mod("log.meta_store").FileMeta
         self._Log = mod("log.log").Log
+        self.torch = lane.torch
         self.dirs = [os.path.join(workdir, n) for n in names]
         self.groups = groups
         self.wal_kw = wal_kw or {}
@@ -475,13 +489,15 @@ class Disk:
 
     def close(self, i):
         """Close node i's WAL, segment writer and meta store. The
-        segment writer first finishes its flushes: its ``close()``
-        waits 10 s for its thread and then walks the open segments
-        while the thread may still be writing them."""
+        reference's segment writer first finishes its flushes: its
+        ``close()`` waits 10 s for its thread and then drains beside a
+        thread that may still be flushing. The port's waits for its
+        thread itself."""
         if self.entries[i] is not None:
             _tables, w, _d = self.entries[i]
             w.close()
-            self.wait_idle(i)
+            if not self.torch:
+                self.wait_idle(i)
             w.segment_writer.close()
             self.entries[i] = None
         self.coords[i] = None
@@ -752,6 +768,502 @@ def restart_rejoin(lane, coords, disk, totals, values, bulk=False,
         for k in ("ingress_ring_full", "ingress_overflow_msgs",
                   "lane_wedges", "lane_recoveries", "stale_peer_resends",
                   "egress_thread_ring_full")}
+    return rec
+
+
+def _quantiles(when, qs=(10, 50, 99)):
+    """The times by which ``qs`` per cent and all of ``when`` had come."""
+    when = sorted(when)
+    n = len(when)
+    out = {q: when[min(n - 1, n * q // 100)] for q in qs}
+    out[100] = when[-1]
+    return out
+
+
+def _reply_kind(reply) -> str:
+    """A reply's tag, with its detail where that is a word (``ok`` for
+    ``("ok", None, leader)`` and ``("ok", 42, leader)``;
+    ``ok:already_member``, ``error:cluster_change_not_permitted``)."""
+    if not isinstance(reply, tuple) or not reply:
+        return repr(reply)
+    detail = reply[1] if len(reply) > 1 else None
+    return (f"{reply[0]}:{detail}" if isinstance(detail, str)
+            else str(reply[0]))
+
+
+class RowSpy:
+    """Counts a coordinator's member-row updates (``_sync_member_rows``,
+    one a group a change: the reference's writes the device rows, the
+    port's stages them) and sums their wall time; on the port also its
+    flushes (``_flush_member_rows``: one device write a pass for every
+    staged group), those that wrote rows and their wall time. It wraps
+    the instance's methods, which the coordinator looks up on the
+    instance at each call."""
+
+    def __init__(self, coord):
+        self.calls, self.s = 0, 0.0
+        self.flushes, self.flush_s = 0, 0.0
+        sync = coord._sync_member_rows
+
+        def spy(g):
+            t = time.perf_counter()
+            try:
+                return sync(g)
+            finally:
+                self.s += time.perf_counter() - t
+                self.calls += 1
+
+        coord._sync_member_rows = spy
+        flush = getattr(coord, "_flush_member_rows", None)
+        if flush is None:
+            return
+
+        def spy_flush():
+            if not coord._member_rows:
+                return flush()
+            t = time.perf_counter()
+            try:
+                return flush()
+            finally:
+                self.flush_s += time.perf_counter() - t
+                self.flushes += 1
+
+        coord._flush_member_rows = spy_flush
+
+
+def member_view(coord, gname) -> list:
+    """Each group's members on ``coord`` as sorted (node, status) pairs,
+    the status ``voter`` or ``nonvoter``: slots are node-local, so two
+    nodes agree when these do."""
+    out = []
+    for n in gname:
+        g = coord.by_name[n]
+        out.append(sorted(
+            (m[1], "voter" if g.voter_status.get(i) == "voter"
+             else "nonvoter")
+            for i, m in enumerate(g.members) if m is not None))
+    return out
+
+
+def row_mismatches(lane, coord, gname) -> int:
+    """The groups whose device ``active``/``voting`` rows on ``coord``
+    differ from its host member table (the state read once)."""
+    f = lane.fields(coord)
+    active, voting = f["active"], f["voting"]
+    bad = 0
+    for n in gname:
+        g = coord.by_name[n]
+        want_a = [False] * active.shape[1]
+        want_v = [False] * active.shape[1]
+        for i, m in enumerate(g.members):
+            if m is not None:
+                want_a[i] = True
+                want_v[i] = g.voter_status.get(i) == "voter"
+        if (list(map(bool, active[g.gid])) != want_a
+                or list(map(bool, voting[g.gid])) != want_v):
+            bad += 1
+    return bad
+
+
+def replace_node(lane, coords, disk, totals, values, new_name, bulk=False,
+                 probe=None, memory=None, api_sample=256, clients=32,
+                 reply_timeout_s=30.0, settle_timeout_s=60.0,
+                 sample_every_s=0.01, poll_s=0.1, timeline_every_s=2.0):
+    """After ``restart_rejoin`` on the same coordinators (node 0
+    following in every group ``g0``.., nodes 1 and 2 leading, all three
+    at ``totals``, by group): node 0 is lost for good and replaced by a
+    fresh node ``new_name`` (storage index 3 of ``disk``).
+
+    Node 0's coordinator stops, its storage closes (``disk.close(0)``)
+    and the coordinator is dropped. Every group's leader takes
+    ``RA_LEAVE`` of node 0 (the command ``api.remove_member`` builds,
+    ``await_consensus``): ``api_sample`` groups through
+    ``api.remove_member`` itself on ``clients`` client threads, the
+    rest in one ``deliver_many`` a leader with ``bulk``; every reply
+    ``ok``. Once no survivor's table names node 0 and every leader may
+    change its cluster again, node 3's meta store, WAL and logs are
+    opened (its logs first: a coordinator registers when it is built),
+    then its coordinator is built with node 0's settings, attached,
+    given every group with members nodes 1, 2 and 3 (``add_groups``)
+    and started; ``coords[0]`` becomes it, so the caller stops it.
+    Every leader then takes ``RA_JOIN`` of node 3 as a non-voter
+    (``api.add_member(..., voter=False)`` for the sample), every reply
+    ``ok``. The scenario waits on state until in every group node 3
+    follows the leader in its term at its total and the leader holds it
+    as a voter, then sends one more command a group (``values``)
+    through its leader, every reply ``ok``, and waits until nodes 1, 2
+    and 3 hold the new totals.
+
+    The record holds, in seconds from the start: ``stop_s`` (node 0
+    stopped, its storage closed), ``shrink_sent_s``, ``shrink_acked_s``
+    (every leave acknowledged), ``shrink_done_s``, ``logs_s`` and
+    ``add_groups_s`` of node 3, ``started_s``, ``grow_sent_s``,
+    ``grow_acked_s`` (polled with the rest),
+    ``first_aer_s`` (a group of node 3 first seen following, polled
+    every ``poll_s``), ``at_totals_s`` and ``promoted_s`` (10, 50, 99 %
+    and all of the groups first seen with node 3 at its total, and
+    first seen held as a voter by the leader), ``replace_s`` (the time
+    to replace a node: the last group with node 3 both at its total and
+    a voter), the promotion's lag after the catch-up, a ``timeline``
+    every ``timeline_every_s`` (seconds, node 3's groups following, at
+    their totals, promoted; node 3's steps and messages processed; the
+    thread count) and ``settled_s``. Beside them: the replies of the
+    shrink, the grow and the write by kind; on nodes 1, 2 and 3 the
+    groups whose table still names node 0, each group's members and
+    their voter statuses (``member_view``), and the groups whose device
+    rows differ from the host table (``row_mismatches``); the survivors'
+    highest term before and after; node 3's pre-vote rounds; the meta
+    stores' ``fdatasync``s by node; the member-row updates and the
+    port's flushes of them by node, counted and timed (``RowSpy``); the
+    peak thread count and resident
+    memory against their values before, with the Python threads by
+    name; ``memory()`` before, once node 0's coordinator was dropped,
+    after ``add_groups`` and at the end; lane counters by node, and the
+    snapshot chunks node 3 received (``snapshot_chunks``: its logs catch
+    up by append, so none); ``probe()`` with the coordinators' steps read
+    exactly together (``quiet_counts``) at the start and the end, and node 0's
+    own steps at its stop (``replaced_steps``); the write's rate; the
+    machine states and the totals they must equal."""
+    P = lane.protocol
+    groups = len(totals)
+    names = [c.name for c in coords]
+    gname = [f"g{g}" for g in range(groups)]
+    survivors = coords[1:]
+    old = coords[0]
+    node0 = names[0]
+    coord_kw = {"capacity": old.capacity, "num_peers": old.P,
+                "election_timeout_s": old.election_timeout_s,
+                "tick_interval_s": old.tick_interval_s,
+                "detector_poll_s": old._detector_poll_s,
+                "active_set": old.active_set}
+    step = max(1, groups // api_sample) if api_sample else 0
+    via_api = set(range(0, groups, step)[:api_sample]) if step else set()
+
+    def leader_of(n):
+        for c in survivors:
+            if c.by_name[n].role == lane.C.R_LEADER:
+                return c
+        return None
+
+    def change(kind, data, pool):
+        """``kind`` with ``data(g)`` to every group's leader: the API
+        sample through ``api.remove_member`` / ``api.add_member``, the
+        rest as the command those build. Returns when they were sent and
+        the replies' futures."""
+        leaders = [leader_of(n) for n in gname]
+        assert all(leaders), "a group without a leader"
+
+        def call(g):
+            sid = (gname[g], leaders[g].name)
+            if kind == P.RA_LEAVE:
+                return lane.api.remove_member(sid, data(g),
+                                              timeout=reply_timeout_s)
+            member, voter = data(g)
+            return lane.api.add_member(sid, member, voter=voter,
+                                       timeout=reply_timeout_s)
+
+        calls = [pool.submit(call, g) for g in sorted(via_api)]
+        futs = []
+        for c in survivors:
+            msgs = []
+            for g in range(groups):
+                if leaders[g] is c and g not in via_api:
+                    fut = lane.api.Future()
+                    futs.append(fut)
+                    msgs.append(((gname[g], c.name), P.Command(
+                        kind=kind, data=data(g),
+                        reply_mode="await_consensus", from_ref=fut), None))
+            if bulk:
+                c.deliver_many(msgs)
+            else:
+                for m in msgs:
+                    c.deliver(*m)
+        return time.perf_counter(), futs + calls
+
+    def kinds(futs):
+        return dict(Counter(_reply_kind(f.result(timeout=reply_timeout_s))
+                            for f in futs))
+
+    rec = {"groups": groups, "api_sample": len(via_api)}
+    rec["survivor_term_before"] = max(
+        c.by_name[n].term for c in survivors for n in gname)
+    spies = [MetaSpy(m) if m is not None else None
+             for m in (disk.metas[1], disk.metas[2])]
+    rows = [RowSpy(c) for c in survivors]
+    mem = {}
+    pool = ThreadPoolExecutor(clients, thread_name_prefix="replace-client")
+    try:
+        # every client thread started before the first count, so that
+        # the counts before and after both hold them
+        ready = threading.Barrier(clients + 1)
+        started = [pool.submit(ready.wait) for _ in range(clients)]
+        ready.wait()
+        for f in started:
+            f.result()
+        rec["probe_before"], rec["steps_before"] = quiet_counts(coords, probe)
+        with Sampler(sample_every_s) as sampler:
+            rec["threads_before"], rec["rss_before"] = sampler.mark()
+            names_before = _names()
+            if memory is not None:
+                mem["before"] = memory()
+            for s in spies:
+                if s is not None:
+                    s.arm()
+            t0 = time.perf_counter()
+            old.stop()
+            rec["replaced_steps"] = steps_of([old])
+            disk.close(0)
+            rec["stop_s"] = time.perf_counter() - t0
+            coords[0] = old = None
+            gc.collect()
+            if memory is not None:
+                mem["released"] = memory()
+
+            sent, futs = change(P.RA_LEAVE, lambda g: (gname[g], node0), pool)
+            rec["shrink_sent_s"] = sent - t0
+            rec["replies"] = {"shrink": kinds(futs)}
+            rec["shrink_acked_s"] = time.perf_counter() - t0
+            await_(lambda: all(
+                (n, node0) not in c.by_name[n].members
+                for c in survivors for n in gname) and all(
+                leader_of(n).by_name[n].cluster_change_permitted
+                for n in gname),
+                timeout=settle_timeout_s,
+                what="node 0 out of every group on both survivors")
+            rec["shrink_done_s"] = time.perf_counter() - t0
+
+            meta = disk.open_meta(3)
+            spy3 = MetaSpy(meta)
+            spy3.arm()
+            spies.append(spy3)
+            disk.open_wal(3)
+            logs = disk.logs(3)
+            rec["logs_s"] = time.perf_counter() - t0
+            new = lane.coord(new_name, meta=meta, **coord_kw)
+            disk.attach(3, new)
+            rows.append(RowSpy(new))
+            chunks = []  # snapshot chunks node 3 received: none expected
+            receive = new._receive_snapshot_chunk
+
+            def spy_chunk(g, msg, from_sid):
+                chunks.append(g.name)
+                return receive(g, msg, from_sid)
+
+            new._receive_snapshot_chunk = spy_chunk
+            members = names[1:] + [new_name]
+            new.add_groups([(gname[g], f"cl{g}",
+                             [(gname[g], n) for n in members], lane.adder(),
+                             logs[g]) for g in range(groups)])
+            rec["add_groups_s"] = time.perf_counter() - t0
+            if memory is not None:
+                mem["added"] = memory()
+            coords[0] = new
+            new.start()
+            rec["started_s"] = time.perf_counter() - t0
+
+            sent, grow = change(P.RA_JOIN,
+                                lambda g: ((gname[g], new_name), False), pool)
+            rec["grow_sent_s"] = sent - t0
+
+            # the grow's replies are awaited in the poll below, so that
+            # node 3's first append is seen when it comes
+            by3 = new.by_name
+            first_aer = None
+            at_totals, promoted = {}, {}
+            timeline = []
+            deadline = time.monotonic() + settle_timeout_s
+            while True:
+                now = time.perf_counter() - t0
+                if "grow_acked_s" not in rec and all(f.done() for f in grow):
+                    rec["grow_acked_s"] = now
+                following = sum(1 for n in gname if by3[n].leader_slot >= 0)
+                if first_aer is None and following:
+                    first_aer = now
+                for g, n in enumerate(gname):
+                    if n in at_totals and n in promoted:
+                        continue
+                    lc = leader_of(n)
+                    if lc is None:
+                        continue
+                    gl, g3 = lc.by_name[n], by3[n]
+                    if (n not in at_totals and g3.role == lane.C.R_FOLLOWER
+                            and g3.term == gl.term
+                            and g3.sid_of(g3.leader_slot) == (n, lc.name)
+                            and g3.machine_state == totals[g]):
+                        at_totals[n] = now
+                    if n not in promoted and gl.voter_status.get(
+                            gl.slot_of((n, new_name))) == "voter":
+                        promoted[n] = now
+                if not timeline or now - timeline[-1][0] >= timeline_every_s:
+                    timeline.append((now, following, len(at_totals),
+                                     len(promoted), new.steps,
+                                     new.msgs_processed, sampler.mark()[0]))
+                if (len(at_totals) == groups and len(promoted) == groups
+                        and "grow_acked_s" in rec):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(
+                        f"node 3 at its totals in {len(at_totals)} and "
+                        f"promoted in {len(promoted)} of {groups} groups, "
+                        f"{sum(f.done() for f in grow)} joins acknowledged")
+                time.sleep(poll_s)
+            rec["replies"]["grow"] = kinds(grow)
+            rec["first_aer_s"] = first_aer
+            rec["timeline"] = timeline
+            rec["at_totals_s"] = _quantiles(at_totals.values())
+            rec["promoted_s"] = _quantiles(promoted.values())
+            rec["replace_s"] = max(rec["at_totals_s"][100],
+                                   rec["promoted_s"][100])
+            rec["promotion_lag_s"] = _quantiles(
+                [max(0.0, promoted[n] - at_totals[n]) for n in gname],
+                qs=(50, 99))
+
+            t = time.perf_counter()
+            leaders = [leader_of(n) for n in gname]
+            futs = []
+            for c in survivors:
+                mine = [g for g in range(groups) if leaders[g] is c]
+                futs += _send(lane, c, [(gname[g], c.name) for g in mine],
+                              [values[g] for g in mine], bulk)
+            rec["replies"]["write"] = kinds(futs)
+            rec["write_after"] = _rate(groups, time.perf_counter() - t)
+            expect = [a + b for a, b in zip(totals, values)]
+            await_(lambda: all(c.by_name[gname[g]].machine_state == expect[g]
+                               for c in coords for g in range(groups)),
+                   timeout=settle_timeout_s,
+                   what="nodes 1, 2 and 3 at the acknowledged totals")
+            rec["settled_s"] = time.perf_counter() - t0
+            sampler.mark()
+    finally:
+        pool.shutdown(wait=True)
+    rec["probe_after"], rec["steps_after"] = quiet_counts(coords, probe)
+    if memory is not None:
+        mem["end"] = memory()
+    rec["memory"] = mem
+    live = survivors + [coords[0]]  # nodes 1, 2, 3
+    rec["thread_names"] = {"before": names_before, "peak": sampler.peak_names}
+    rec["peak_threads"] = sampler.peak_threads
+    rec["peak_rss"] = sampler.peak_rss
+    rec["leaders"] = [names.index(c.name) for c in leaders]
+    rec["survivor_term_after"] = max(
+        c.by_name[n].term for c in survivors for n in gname)
+    rec["pre_vote_rounds"] = sum(by3[n].pre_vote_token for n in gname)
+    rec["meta_syncs"] = [s.syncs if s is not None else None for s in spies]
+    rec["member_rows"] = {"calls": [r.calls for r in rows],
+                          "s": [r.s for r in rows],
+                          "flushes": [r.flushes for r in rows],
+                          "flush_s": [r.flush_s for r in rows]}
+    rec["live_names"] = [c.name for c in live]
+    rec["named_node0"] = [sum(1 for n in gname
+                              if (n, node0) in c.by_name[n].members)
+                          for c in live]
+    rec["members"] = [member_view(c, gname) for c in live]
+    rec["row_mismatches"] = [row_mismatches(lane, c, gname) for c in live]
+    rec["states"] = [[c.by_name[n].machine_state for n in gname]
+                     for c in live]
+    rec["expect"] = expect
+    rec["counters"] = {
+        k: [c.counters.get(k) for c in live]
+        for k in ("ingress_ring_full", "ingress_overflow_msgs",
+                  "lane_wedges", "stale_peer_resends")}
+    rec["snapshot_chunks"] = len(chunks)
+    return rec
+
+
+def reused_slot(lane, prefix="rs", cmds=4, rounds=400):
+    """One group ``g0`` on hand-stepped coordinators (a ``ManualClock``):
+    nodes 0, 1 and 2, elected on node 1, ``cmds`` commands applied on
+    all three. Node 0 stops and leaves through node 1; a fresh node 3
+    (members nodes 1, 2 and 3) joins through node 1 as a non-voter,
+    taking on the leader the slot node 0 left, and is not stepped until
+    the join has committed on nodes 1 and 2. Then node 2 is cut off
+    (never stepped again), ``cmds`` more commands go to node 1, and
+    nodes 1 and 3 are stepped in turn until node 3 is promoted and the
+    new commands commit through it.
+
+    The record holds the leader's device row of the reused slot just
+    after the join was appended (``active``, ``voting``, and the
+    ``match_index`` node 0 left there), and after each step of the last
+    part the leader's commit index, what nodes 1 and 2 alone hold (the
+    least of the leader's written index and node 2's match there) and
+    whether the leader holds node 3 as a voter; the replies, and the
+    machine states of nodes 1 and 3 at the end."""
+    clock = ManualClock()
+    names = [f"{prefix}{i}" for i in range(4)]
+    P = lane.protocol
+    n = "g0"
+    coords = [lane.coord(x, capacity=1, num_peers=3, clock=clock)
+              for x in names[:3]]
+    rec = {}
+    try:
+        for c in coords:
+            c.add_groups([(n, "cl0", [(n, x) for x in names[:3]],
+                           lane.adder())])
+        lead = coords[1]
+        gl = lead.by_name[n]
+        lead.deliver((n, names[1]), P.ElectionTimeout(), None)
+        step_until(coords, lambda: gl.role == lane.C.R_LEADER
+                   and gl.cluster_change_permitted, what="leader on node 1")
+
+        def send(to, data, kind=P.USR):
+            fut = lane.api.Future()
+            to.deliver((n, to.name), P.Command(
+                kind=kind, data=data, reply_mode="await_consensus",
+                from_ref=fut), None)
+            return fut
+
+        futs = [send(lead, v) for v in range(1, cmds + 1)]
+        total = sum(range(1, cmds + 1))
+        step_until(coords, lambda: all(f.done() for f in futs) and all(
+            c.by_name[n].machine_state == total for c in coords),
+            what="the first commands on all three")
+        replies = [_reply_kind(f.result(0)) for f in futs]
+        coords[0].stop()
+        live = coords[1:]
+        fut = send(lead, (n, names[0]), P.RA_LEAVE)
+        step_until(live, lambda: fut.done() and gl.cluster_change_permitted,
+                   what="node 0 left")
+        replies.append(_reply_kind(fut.result(0)))
+
+        c3 = lane.coord(names[3], capacity=1, num_peers=3, clock=clock)
+        coords.append(c3)
+        c3.add_groups([(n, "cl0", [(n, x) for x in names[1:]], lane.adder())])
+        fut = send(lead, ((n, names[3]), False), P.RA_JOIN)
+        lead.step_once()
+        slot = gl.slot_of((n, names[3]))
+        f = lane.fields(lead)
+        rec["slot"] = slot
+        rec["row_at_join"] = {k: int(f[k][gl.gid][slot])
+                              for k in ("active", "voting", "match_index")}
+        step_until(live, lambda: fut.done() and gl.cluster_change_permitted,
+                   what="the join committed")
+        replies.append(_reply_kind(fut.result(0)))
+
+        futs = [send(lead, v) for v in range(1, cmds + 1)]
+        slot2 = gl.slot_of((n, names[2]))
+        seen = []
+        for _ in range(rounds):
+            for c in (lead, c3):
+                c.step_once()
+                f = lane.fields(lead)
+                pair = min(int(f["written_index"][gl.gid]),
+                           int(f["match_index"][gl.gid][slot2]))
+                seen.append((int(f["commit_index"][gl.gid]), pair,
+                             gl.voter_status.get(slot) == "voter"))
+            if all(x.done() for x in futs) and seen[-1][2]:
+                break
+        else:
+            raise AssertionError("node 3 never promoted, or the commands "
+                                 "never committed through it")
+        replies += [_reply_kind(x.result(0)) for x in futs]
+        rec["seen"] = seen
+        rec["replies"] = replies
+        step_until([lead, c3], lambda: c3.by_name[n].machine_state == 2 * total,
+                   what="node 3 applied every command")
+        rec["states"] = [c.by_name[n].machine_state for c in (lead, c3)]
+    finally:
+        for c in coords:
+            c.stop()
     return rec
 
 

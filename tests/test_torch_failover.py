@@ -7,6 +7,12 @@ fleet, on ``ra_tpu`` and on ``ra_tpu_torch`` (its coordinators on
 timer thread, with the same delays and ``armed`` stamps, and closes it
 in ``stop()``.
 
+After the failover, the stopped node restarts from its own storage,
+and then it is lost for good and replaced in every group by a fresh
+node that joins as a non-voter and is promoted once caught up; one
+hand-stepped group shows that the joining non-voter, in the slot the
+leaver left, counts in no quorum before its promotion.
+
 The scenarios live in ``tests/failover_cases.py``, which
 ``chip_smoke.py`` also runs on the card. Waits are on state.
 """
@@ -280,3 +286,98 @@ def test_term_and_vote_are_durable_before_any_vote_message_leaves(
             assert set(fs) <= {0, GROUPS}, rec
         else:
             assert all(f <= s < GROUPS for f, s in zip(fs, steps)), rec
+
+
+def _replace(name, tmp_path):
+    """fail_over, restart_rejoin, then replace_node at 64 groups x 3 on
+    one package, WAL-backed, a meta store a node (node 3's too)."""
+    lane = L.Lane(name)
+    names = [f"rp{i}" for i in range(4)]
+    disk = FC.Disk(lane, str(tmp_path / name), names, GROUPS)
+    rng = [v % 89 + 1 for v in range(GROUPS)]
+    third, fourth = rng, [v % 31 + 2 for v in range(GROUPS)]
+
+    def then(coords, totals):
+        rr = FC.restart_rejoin(lane, coords, disk, totals, third)
+        return FC.replace_node(lane, coords, disk, rr["expect"], fourth,
+                               names[3], api_sample=16, clients=8)
+
+    try:
+        rec = FC.leader_failover(
+            lane, prefix="rp", groups=GROUPS, seed=16, logs=disk.open_all,
+            metas=[disk.open_meta(i) for i in range(3)], then=then)
+    finally:
+        disk.close_all()
+    return lane, rec
+
+
+def test_lost_node_is_replaced_by_a_fresh_node_in_every_group(tmp_path,
+                                                              both_clear):
+    """(g) after (a) and (e), node 0 is lost for good and replaced on
+    both packages: it is shrunk out of every group through the group's
+    leader (16 groups through ``api.remove_member``), a fresh node 3
+    joins every group as a non-voter (16 through ``api.add_member``), is
+    caught up by append with no install and promoted, and one more
+    command a group reaches nodes 1, 2 and 3. Every reply is ``ok``, no
+    table names node 0, every group has three voters on every live
+    node, the device's active and voting rows equal the host tables, no
+    survivor's term moves, and the port adds no thread a group. The
+    member sets, replies and machine states are equal on both
+    packages."""
+    recs = {}
+    for name in PACKAGES:
+        lane, rec = _replace(name, tmp_path)
+        rp = rec["then"]
+        seen = {k: v for k, v in rp.items()
+                if k not in ("states", "expect", "leaders", "members")}
+        assert rp["states"] == [rp["expect"]] * 3, seen
+        assert rp["replies"] == {"shrink": {"ok": GROUPS},
+                                 "grow": {"ok": GROUPS},
+                                 "write": {"ok": GROUPS}}, seen
+        assert rp["named_node0"] == [0, 0, 0], seen
+        voters = [sorted([("rp1", "voter"), ("rp2", "voter"),
+                          ("rp3", "voter")])] * GROUPS
+        assert rp["members"] == [voters] * 3, seen
+        assert rp["row_mismatches"] == [0, 0, 0], seen
+        assert rp["survivor_term_after"] == rp["survivor_term_before"], seen
+        assert rp["snapshot_chunks"] == 0, seen
+        assert rp["first_aer_s"] is not None, seen
+        assert (rp["stop_s"] <= rp["shrink_sent_s"] <= rp["shrink_acked_s"]
+                <= rp["shrink_done_s"] <= rp["logs_s"] <= rp["add_groups_s"]
+                <= rp["started_s"] <= rp["grow_sent_s"] <= rp["first_aer_s"]
+                <= rp["replace_s"] <= rp["settled_s"]), seen
+        assert rp["grow_sent_s"] <= rp["grow_acked_s"] <= rp["settled_s"]
+        # three changes a group (leave, join, promotion), each written to
+        # the device on each node that held the group then: one write a
+        # change on the reference, one a pass on the port
+        rows = rp["member_rows"]
+        assert rows["calls"] == [3 * GROUPS] * 3, seen
+        if lane.torch:
+            assert all(0 < f < 3 * GROUPS for f in rows["flushes"]), seen
+            assert rp["peak_threads"] - rp["threads_before"] <= 16, seen
+        recs[name] = {k: rp[k] for k in ("members", "replies", "states",
+                                         "row_mismatches", "named_node0")}
+    assert recs["ra_tpu"] == recs["ra_tpu_torch"]
+
+
+def test_reused_slot_counts_in_no_quorum_before_its_promotion(both_clear):
+    """(h) one group, hand-stepped: node 3 joins as a non-voter into the
+    slot node 0 left on the leader, which still holds node 0's last
+    match there; with node 2 cut off, the leader's commit index never
+    passes what nodes 1 and 2 alone hold until node 3 is promoted, and
+    the new commands then commit through node 3. The records of both
+    packages are equal."""
+    recs = {}
+    for name in PACKAGES:
+        rec = FC.reused_slot(L.Lane(name))
+        seen = rec["seen"]
+        early = [s for s in seen if not s[2] and s[0] > s[1]]
+        assert early == [], early
+        # the promotion let the commands commit past node 2's match
+        assert seen[-1][2] and seen[-1][0] > seen[-1][1], seen[-3:]
+        assert rec["row_at_join"]["active"] == 1, rec
+        assert rec["row_at_join"]["voting"] == 0, rec
+        assert set(rec["replies"]) == {"ok"}, rec["replies"]
+        assert rec["states"] == [20, 20], rec
+        recs[name] = rec
+    assert recs["ra_tpu"] == recs["ra_tpu_torch"]

@@ -96,6 +96,38 @@ EDITED_LINES = {
         "        h = int(self._idx[0])\n"
         "        return int(self._idx[_PAD]) - h\n",
     )],
+    # close() waits for its flusher, however long its flushes take: the
+    # reference joins it for 10 s and then drains on the caller's
+    # thread, beside a flusher still flushing (closing a node's storage
+    # after a full-width failover failed so on the card;
+    # tests/test_torch_log_defects.py shows it on both packages)
+    "log/segment_writer.py": [(
+        "            self._thread.join(timeout=10)\n",
+        "            # the flusher drains the queue before it exits: wait for it\n"
+        "            # however long its flushes take, so that the drain below only\n"
+        "            # takes what a dead flusher left (two drainers would write one\n"
+        "            # server's open segment at once)\n"
+        "            self._thread.join()\n",
+    )],
+    # a segment file shorter than its header and index region is one
+    # the segment writer is still creating, and holds no entry: the set
+    # skips it, where the reference fails to open the log (a log opened
+    # during WAL recovery's segment flush; tests/test_torch_log_defects.py
+    # shows it on both packages)
+    "log/segments.py": [(
+        "import pickle\nimport threading\n",
+        "import pickle\nimport struct\nimport threading\n",
+    ), (
+        "                except (ValueError, OSError):\n"
+        "                    continue\n",
+        "                except (ValueError, OSError, struct.error):\n"
+        "                    # struct.error: shorter than its header and index\n"
+        "                    # region, which the segment writer writes before any\n"
+        "                    # entry, so a file it is still creating: no entry is\n"
+        "                    # in it yet, and its range comes with the writer's\n"
+        "                    # notification\n"
+        "                    continue\n",
+    )],
     "lease.py": [(
         "# Test-only failpoint (PR-8 style, see models/fifo.py",
         "# Test-only failpoint (in the style of models/fifo.py",
@@ -1461,6 +1493,83 @@ COORD_EDITED_LINES = [
         '        if meta_sync is not None:\n'
         "            meta_sync()  # the pass's forced candidacies, before they leave\n"
         '        for node_name, msgs in rare_out.items():\n'),
+    # member rows written once a pass: replacing a lost node at full
+    # width (10240 groups x 3 on the card) makes three changes a group,
+    # each adopted on every node holding it, and the reference's one
+    # set_rows a change (0.34 ms each on the H100, scripts/replace_probe.py)
+    # came to about 10 s of one step thread's time a node. A change
+    # stages its group's rows, and the pass writes every staged group in
+    # one call a field before its step is dispatched, at the end of a
+    # realised pass, and before group registration or a forced shrink
+    # write these rows: each group's last view, as the reference's calls
+    # leave it, and nothing reads the rows in between
+    # (tests/test_torch_failover.py holds the rows against the host
+    # tables and the member sets against the reference)
+    (
+        "        self._install_rows: Optional[Dict[int, Tuple[int, ...]]] = None\n",
+        "        self._install_rows: Optional[Dict[int, Tuple[int, ...]]] = None\n"
+        "        # member rows (active, voting) a pass changed, by gid, written to\n"
+        "        # the device in one scatter before the next step and at the end\n"
+        "        # of every realised pass: one scatter a pass, not one a group a\n"
+        "        # membership change\n"
+        "        self._member_rows: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}\n"),
+    (
+        "            with self._state_lock:\n"
+        "                self.state = dev.set_rows(\n"
+        "                    self.state, gids,\n",
+        "            with self._state_lock:\n"
+        "                self._flush_member_rows()\n"
+        "                self.state = dev.set_rows(\n"
+        "                    self.state, gids,\n"),
+    (
+        "        self._flush_install_rows()\n"
+        "        meta_sync = getattr(self.meta, \"sync\", None)\n",
+        "        self._flush_install_rows()\n"
+        "        self._flush_member_rows()\n"
+        "        meta_sync = getattr(self.meta, \"sync\", None)\n"),
+    (
+        "        # reference): every slice steps at full width.\n"
+        "        act: Optional[list] = None\n",
+        "        # reference): every slice steps at full width.\n"
+        "        self._flush_member_rows()\n"
+        "        act: Optional[list] = None\n"),
+    (
+        '        """Scatter the host member table\'s active/voting view to the\n'
+        '        device (call sites all run under the state lock)."""\n',
+        '        """Stage the host member table\'s active/voting view for the\n'
+        "        device (call sites all run under the state lock); the pass's\n"
+        '        rows reach it in one scatter (``_flush_member_rows``)."""\n'),
+    (
+        "                voting[i] = g.voter_status.get(i) == \"voter\"\n"
+        "        self.state = self._dev.set_rows(\n"
+        "            self.state, g.gid, active=active, voting=voting\n"
+        "        )\n",
+        "                voting[i] = g.voter_status.get(i) == \"voter\"\n"
+        "        self._member_rows[g.gid] = (active, voting)\n"),
+    (
+        "    def _adopt_cluster_cmd(self, g: GroupHost, cmd: Command, entry_index: int = 0) -> None:\n",
+        "    def _flush_member_rows(self) -> None:\n"
+        '        """Write the staged member rows to the device, one scatter a\n'
+        "        field for every group staged since the last flush (each group's\n"
+        "        last view, as the reference's one scatter a change leaves it).\n"
+        "        Runs under the state lock, before a step is dispatched, at the\n"
+        "        end of every realised pass and before another write of these\n"
+        '        rows."""\n'
+        "        rows, self._member_rows = self._member_rows, {}\n"
+        "        if rows:\n"
+        "            self.state = self._dev.set_rows(\n"
+        "                self.state, list(rows),\n"
+        "                active=np.stack([a for a, _v in rows.values()]),\n"
+        "                voting=np.stack([v for _a, v in rows.values()]),\n"
+        "            )\n"
+        "\n"
+        "    def _adopt_cluster_cmd(self, g: GroupHost, cmd: Command, entry_index: int = 0) -> None:\n"),
+    (
+        "            onehot[0] = True\n"
+        "            self.state = self._dev.set_rows(\n",
+        "            onehot[0] = True\n"
+        "            self._flush_member_rows()\n"
+        "            self.state = self._dev.set_rows(\n"),
 ]
 
 
@@ -1526,7 +1635,7 @@ def test_no_file_of_the_port_imports_jax_or_the_reference():
         "scripts/wal_setup_threads.py", "scripts/rehearse_phase_loop.py",
         "tests/queue_cases.py", "scripts/rehearse_phase_queue.py",
         "scripts/snapshot_write_probe.py", "scripts/queue_profile.py",
-        "scripts/meta_sync_probe.py")]
+        "scripts/meta_sync_probe.py", "scripts/replace_probe.py")]
     for path in files:
         src = _read(path)
         assert not _BAD_IMPORT.search(src), path
